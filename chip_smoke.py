@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
-holds each against its plain PyTorch version on the card and times it,
-then drives the port's main path, the batched sweep engine, through its
-entry point ``run_sweep``:
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
+and holds each against its plain PyTorch version on the card, and times
+it: the max-plus scans at (1000, 8192), the SSD scan at the serve path's
+own scans (mLSTM's numerator and denominator, and a strong decay that
+must stay finite; ``y`` and the final state).  Then it drives the port's
+two main paths through their entry points.  The batched sweep engine,
+``run_sweep``:
 
 * open loop: the 64-point ``sweep_grid()``, checked <= 1e-9 per column
   against the same grid run by the port on the CPU (plain versions);
@@ -15,6 +18,17 @@ entry point ``run_sweep``:
   against the committed ``fig_scale`` rows of ``BENCH_sweep.json``;
 * closed loop ``fig_scale_1m``: 1000 groups x 1000 threads = 1M clients,
   5M ops, checked against the committed ``fig_scale_1m`` rows.
+
+The LLM serving path, ``repro_torch.launch.serve.serve``:
+
+* ``serve_xlstm``: full-width xlstm-125m (random weights from seed 0), 8
+  requests of 1024 tokens with a 256-token shared prefix, 32 generated
+  tokens each, with the SSD kernel's launches checked per prefill, then
+  the split of a warm prefill and decode step (per layer kind, and the
+  device's busy share under torch.profiler);
+* the card's serve run against the port's CPU run of the same seed at 2
+  requests x 256 tokens, teacher-forced with the card's tokens, logits
+  within ``LOGIT_TOL``.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path and read just after, and a path that never launched its
@@ -57,6 +71,18 @@ SWEEP_RTOL = 1e-9
 CLOSED_PATHS = (("fig_scale", 100, 100, 1000, None),
                 ("fig_scale_1m", 1000, 1000, 5000, 10_000))
 DEVICE = "cuda"
+# the SSD kernel against its plain version: max |kernel - plain| <= tol *
+# max(1, max |plain|), float32 sums over up to 384 terms in another order
+SSD_TOL = 1e-4
+# the card's serve logits against the CPU's: max |card - CPU| <= tol *
+# max(1, max |CPU|), the bound the port's CPU tests hold it to against the
+# reference and the GPU test to the CPU
+LOGIT_TOL = 1e-4
+# serve_xlstm, the main serving path, and the smaller CPU comparison
+SERVE = dict(arch="xlstm-125m", requests=8, prompt_len=1024,
+             shared_prefix_len=256, gen_len=32, seed=0)
+SERVE_VS_CPU = dict(arch="xlstm-125m", requests=2, prompt_len=256,
+                    shared_prefix_len=64, gen_len=8, seed=0)
 
 
 def log(*parts) -> None:
@@ -258,6 +284,179 @@ def kernel_phase(card: dict, dev) -> dict:
     return kernels
 
 
+def ssd_inputs(BH: int, S: int, P: int, N: int, seed: int, dev,
+               decay=None):
+    """Seeded scan inputs with the reference kernel tests'
+    distributions: normal x, log decay -softplus(normal) (or ``decay``),
+    sigmoid step, B and C normal / sqrt(N)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((BH, S, P))
+    loga = (-np.logaddexp(0.0, rng.standard_normal((BH, S, 1)))
+            if decay is None else np.full((BH, S, 1), decay))
+    dt = 1.0 / (1.0 + np.exp(-rng.standard_normal((BH, S, 1))))
+    Bm = rng.standard_normal((BH, S, N)) / np.sqrt(N)
+    Cm = rng.standard_normal((BH, S, N)) / np.sqrt(N)
+    return [torch.from_numpy(a).float().to(dev)
+            for a in (x, loga, dt, Bm, Cm)]
+
+
+def ssd_work(BH: int, S: int, P: int, N: int, Q: int, h0: bool) -> tuple:
+    """(bytes, operations) the scan needs: every input read and every
+    output written once, and the operations of whichever of the
+    function's two forms needs fewer, two operations a multiply-add.
+    Chunked, per chunk: the causal triangles (Q (Q + 1) / 2 entries) of
+    C B^T (N deep) and of M (x dt) (P wide), C h (Q N P) and B^T (x dt)
+    (N Q P).  Recurrent, per token: h a + B (x) (x dt) (3 N P) and C h
+    (2 N P).  The numerator (P = N) is cheaper chunked, the denominator
+    (P = 1) as the recurrence."""
+    floats = BH * S * (2 * P + 2 * N + 2) + BH * N * P * (2 if h0 else 1)
+    tri = Q * (Q + 1) // 2
+    chunked = 2 * BH * (S // Q) * (tri * N + tri * P + 2 * Q * N * P)
+    recurrent = BH * S * 5 * N * P
+    return 4 * floats, min(chunked, recurrent)
+
+
+def ssd_kernel_phase(card: dict, dev) -> dict:
+    """The SSD kernel at the serve path's scans, BH = 8 requests x 4
+    heads, S = 1024, N = 384, Q = 128: mLSTM's numerator (P = 384, from
+    zero and from a random state) and denominator (P = 1), and a strong
+    decay (60 nats a token) whose masked exponentials overflow; y and
+    h_final against the plain chunked version on the same inputs, then
+    timed beside it and its bound."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ssd_chunked_ref, ssm_scan
+
+    BH, S, N, Q = 32, 1024, 384, 128
+    out = {}
+    for case, P, decay, with_h0 in (("numerator", 384, None, False),
+                                    ("numerator+h0", 384, None, True),
+                                    ("denominator", 1, None, False),
+                                    ("strong-decay", 384, -60.0, False)):
+        args = ssd_inputs(BH, S, P, N, 3, dev, decay)
+        h0 = (torch.randn((BH, N, P), generator=torch.Generator(
+            dev).manual_seed(4), device=dev) if with_h0 else None)
+        y, h = ssm_scan(*args, chunk=Q, h0=h0)
+        py, ph = ssd_chunked_ref(*args, chunk=Q, h0=h0)
+        errs = {}
+        for what, got, want in (("y", y, py), ("h_final", h, ph)):
+            check(bool(torch.isfinite(got).all()),
+                  f"ssd {case}: {what} not finite")
+            err = float((got - want).abs().max())
+            bound = SSD_TOL * max(1.0, float(want.abs().max()))
+            check(err <= bound, f"ssd {case}: {what} max_abs_err {err} > "
+                  f"{bound}")
+            errs[what] = err
+        line = (f"ssd_chunked {case} (BH {BH}, S {S}, P {P}, N {N}, Q {Q}):"
+                f" max_abs_err vs plain y {errs['y']:.3e}, h_final "
+                f"{errs['h_final']:.3e} (tol {SSD_TOL} x max(1, |plain|))")
+        if case in ("numerator", "denominator"):
+            nbytes, ops = ssd_work(BH, S, P, N, Q, False)
+            b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
+            ms = time_ms(lambda: ssm_scan(*args, chunk=Q))
+            plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=Q),
+                               reps=1, windows=3)
+            line += (f"; {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                     f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
+                     f"{ops / ms / 1e9:.2f} TFLOP/s achieved), plain "
+                     f"{plain_ms:.3f} ms, library - (no torch call "
+                     f"computes the SSD scan)")
+            out[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=max(errs.values()))
+        log(line)
+    num, den = out["numerator"], out["denominator"]
+    return dict(
+        name="ssd_chunked", route="cuda",
+        source="src/repro_torch/kernels/ssm_scan/csrc/ssd_chunked.cu",
+        replaces="src/repro/kernels/ssm_scan/kernel.py:68", launches=0,
+        max_abs_err=num["max_abs_err"], ms=num["ms"],
+        plain_ms=num["plain_ms"], bound_ms=num["bound_ms"],
+        bound_by=num["bound_by"], library_ms=None,
+        denominator={k: den[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "max_abs_err")})
+
+
+def device_busy(fn) -> tuple:
+    """(device busy ms, kernels) of one call of ``fn`` under
+    torch.profiler: the summed durations of the CUDA kernels it ran
+    (one stream, so they do not overlap); (None, 0) if the profiler saw
+    no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return None, 0
+    return sum(e.time_range.elapsed_us() for e in kern) / 1e3, len(kern)
+
+
+def serve_breakdown(dev) -> dict:
+    """Where a warm prefill and a warm decode step of ``serve_xlstm``'s
+    shape go: host wall per layer kind (synchronized forward hooks on
+    the layer modules), and the device's busy share from torch.profiler.
+    Random weights from seed 0 and random prompt tokens, as serve."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_config(SERVE["arch"])
+    params = init_params(cfg, SERVE["seed"], device=dev)
+    toks = torch.randint(1, cfg.vocab_size,
+                         (SERVE["requests"], SERVE["prompt_len"]),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    logits, cache = prefill(params, cfg, toks)            # warm-up
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    del logits
+    spent = {"mlstm": 0.0, "slstm": 0.0}
+    started = {}
+
+    def pre(mod, args):
+        torch.cuda.synchronize()
+        started[mod] = time.perf_counter()
+
+    def post(kind):
+        def hook(mod, args, out):
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - started[mod]
+        return hook
+
+    hooks = []
+    for kind in spent:
+        for mod in getattr(params, f"{kind}_layers"):
+            hooks += [mod.register_forward_pre_hook(pre),
+                      mod.register_forward_hook(post(kind))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, cfg, toks)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    decode_step(params, cfg, cache, tok)                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 5
+    for _ in range(steps):
+        decode_step(params, cfg, cache, tok)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    out = dict(prefill_s=total, mlstm_s=spent["mlstm"],
+               slstm_s=spent["slstm"], decode_step_s=step_s)
+    t0 = time.perf_counter()
+    out["prefill_busy_ms"], out["prefill_kernels"] = device_busy(
+        lambda: prefill(params, cfg, toks))
+    out["prefill_traced_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["decode_busy_ms"], out["decode_kernels"] = device_busy(
+        lambda: decode_step(params, cfg, cache, tok))
+    out["decode_traced_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -269,7 +468,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_build
     from repro_torch.kernels.maxplus_scan import kernel as mp_kernel
+    from repro_torch.kernels.ssm_scan import ssm_scan_kernel
+    from repro_torch.launch.serve import serve
     from repro_torch.sim.cluster import ServiceParams
     from repro_torch.sim.sweep import SweepPoint, run_sweep, sweep_grid
 
@@ -285,18 +488,20 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, peaks {card}")
     t0 = time.perf_counter()
-    mp_kernel.build()
-    log(f"kernel build (nvcc, one per source, in parallel): "
-        f"{time.perf_counter() - t0:.2f} s")
-    for src, text in mp_kernel.BUILD_LOG.items():
+    cuda_build.build()
+    log(f"kernel build ({len(cuda_build.SOURCES)} sources, one nvcc each, "
+        f"in parallel): {time.perf_counter() - t0:.2f} s")
+    for src, text in cuda_build.BUILD_LOG.items():
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"  ptxas {src}: {ln.strip()}")
 
     # ---------------------------------------------------- kernels alone
     kernels = kernel_phase(card, dev)
+    kernels["ssd_chunked"] = ssd_kernel_phase(card, dev)
     wrappers = {"maxplus_chunked": mp_kernel.maxplus_chunked,
-                "maxplus_seq": mp_kernel.maxplus_seq}
+                "maxplus_seq": mp_kernel.maxplus_seq,
+                "ssd_chunked": ssm_scan_kernel}
     by_path: dict = {name: {} for name in wrappers}
 
     def drive(path: str, needs: str, fn):
@@ -399,6 +604,95 @@ def main() -> int:
             f"launch, bound {b_ms:.4f} ms ({b_by}), matches its plain "
             f"version; x {by_path[name][path]} launches = {share:.1%} of the "
             f"path's device time")
+
+    # ------------------------------------------------ serving, full width
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = drive("serve_xlstm", "ssd_chunked",
+                lambda: serve(device=dev, **SERVE))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    cfg = get_config(SERVE["arch"])
+    n_mlstm = cfg.n_layers - len(cfg.slstm_layers)
+    want = 2 * n_mlstm     # numerator + denominator scan per mLSTM layer
+    check(by_path["ssd_chunked"]["serve_xlstm"] == want,
+          f"serve_xlstm: {by_path['ssd_chunked']['serve_xlstm']} SSD "
+          f"launches, expected {want} (one prefill)")
+    B, G = SERVE["requests"], SERVE["gen_len"]
+    check(res["tokens"].shape == (B, G), "serve_xlstm: token shape")
+    check(res["logits"].shape == (B, G, cfg.vocab_size),
+          "serve_xlstm: logit shape")
+    check(bool(np.isfinite(res["logits"]).all()),
+          "serve_xlstm: logits not finite")
+    check(np.array_equal(res["tokens"], res["logits"].argmax(-1)),
+          "serve_xlstm: tokens are not the argmax of their logits")
+    # the shared prefix's pages (serve's default 8 tokens a page) are
+    # stored once and every later request hits them; each request also
+    # holds its own local pages
+    pages = SERVE["shared_prefix_len"] // 8
+    local = (SERVE["prompt_len"] - SERVE["shared_prefix_len"] + G + 7) // 8
+    check(res["pool"]["dedup_hits"] == (B - 1) * pages
+          and res["pool"]["slots_used"] == pages + B * local,
+          f"serve_xlstm: page pool {res['pool']}")
+    log(f"serve_xlstm: {B} requests x {SERVE['prompt_len']} prompt tokens "
+        f"(shared prefix {SERVE['shared_prefix_len']}) + {G} generated; "
+        f"prefill {res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s "
+        f"({G - 1} steps, {res['decode_s'] / (G - 1) * 1e3:.3f} ms each), "
+        f"{res['tok_per_s']:.1f} tok/s; peak device memory {peak:.3f} GiB; "
+        f"SSD launches {by_path['ssd_chunked']['serve_xlstm']} (expected "
+        f"{want}); pool {res['pool']}; generated[0][:8] "
+        f"{res['tokens'][0][:8].tolist()}")
+    k3 = kernels["ssd_chunked"]
+    scan_s = n_mlstm * (k3["ms"] + k3["denominator"]["ms"]) / 1e3
+    bd = serve_breakdown(dev)
+    rest = bd["prefill_s"] - bd["mlstm_s"] - bd["slstm_s"]
+    log(f"serve_xlstm warm prefill {bd['prefill_s']:.4f} s: {n_mlstm} mLSTM "
+        f"layers {bd['mlstm_s']:.4f} s ({bd['mlstm_s'] / bd['prefill_s']:.1%}"
+        f"; of which the SSD kernel {scan_s:.4f} s = {n_mlstm} x (numerator "
+        f"{k3['ms']:.4f} + denominator {k3['denominator']['ms']:.4f}) ms, "
+        f"{scan_s / bd['prefill_s']:.1%} of prefill), 2 sLSTM layers "
+        f"{bd['slstm_s']:.4f} s ({bd['slstm_s'] / bd['prefill_s']:.1%}), "
+        f"embedding, final norm and logits {rest:.4f} s "
+        f"({rest / bd['prefill_s']:.1%}); warm decode step "
+        f"{bd['decode_step_s'] * 1e3:.3f} ms")
+    # the profiler slows the host many times over, not the kernels: the
+    # busy share is taken against the untraced warm wall time
+    for what, wall in (("prefill", bd["prefill_s"]),
+                       ("decode", bd["decode_step_s"])):
+        busy, n = bd[f"{what}_busy_ms"], bd[f"{what}_kernels"]
+        wall *= 1e3
+        log(f"serve_xlstm {what} under torch.profiler: "
+            + ("device busy not measured (the profiler saw no kernels)"
+               if busy is None else
+               f"{n} kernels, device busy {busy:.3f} ms against "
+               f"{wall:.3f} ms of untraced warm wall: the device idles "
+               f"{1 - busy / wall:.1%} (traced wall "
+               f"{bd[f'{what}_traced_s'] * 1e3:.3f} ms)"))
+
+    # --------------------------- the card's serve run against the CPU's
+    gpu = serve(device=dev, **SERVE_VS_CPU)
+    t0 = time.perf_counter()
+    cpu = serve(device="cpu", teacher_tokens=gpu["tokens"], **SERVE_VS_CPU)
+    err = float(np.max(np.abs(gpu["logits"] - cpu["logits"])))
+    bound = LOGIT_TOL * max(1.0, float(np.max(np.abs(cpu["logits"]))))
+    check(err <= bound, f"serve vs CPU: logits max_abs_err {err} > {bound}")
+    agree = float(np.mean(gpu["tokens"] == cpu["logits"].argmax(-1)))
+    log(f"serve vs CPU ({SERVE_VS_CPU['requests']} requests x "
+        f"{SERVE_VS_CPU['prompt_len']} tokens + {SERVE_VS_CPU['gen_len']}, "
+        f"teacher-forced with the card's tokens): logits max_abs_err "
+        f"{err:.3e} <= {bound:.3e}; card's tokens = CPU argmax for "
+        f"{agree:.0%}; CPU run {time.perf_counter() - t0:.1f} s")
+    # a reading, not a check: the same run with TF32 matrix products,
+    # which the serve path leaves off, against the same bound
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = serve(device=dev, teacher_tokens=gpu["tokens"],
+                     **SERVE_VS_CPU)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    tf32_err = float(np.max(np.abs(tf32["logits"] - cpu["logits"])))
+    log(f"serve vs CPU with allow_tf32=True: logits max_abs_err "
+        f"{tf32_err:.3e}, {'above' if tf32_err > bound else 'within'} the "
+        f"bound {bound:.3e}")
 
     for name, k in kernels.items():
         k["launches"] = sum(by_path[name].values())

@@ -1,12 +1,15 @@
 """Hand-written CUDA kernels for the port's hot spots, each package with
-kernel.py (the CUDA build, bindings and launch wrappers over ``csrc/``),
-ops.py (backend dispatch) and ref.py (plain PyTorch versions, which CPU
-tensors run):
+kernel.py (bindings and launch wrappers over ``csrc/``), ops.py (the
+entry point) and ref.py (plain PyTorch versions, which CPU tensors run);
+``cuda_build`` compiles and loads every package's sources:
 
 * maxplus_scan — the EdgeKV simulator's leader-stage departure
   recurrence, batched over rows; the numeric core of the batched sweep
   engine (repro_torch.sim.sweep).
+* ssm_scan — the chunked SSD scan of the SSM family's sequence mixing
+  (mLSTM in xlstm; repro_torch.models.ssm).
 """
 from .maxplus_scan import maxplus_depart
+from .ssm_scan import ssm_scan
 
-__all__ = ["maxplus_depart"]
+__all__ = ["maxplus_depart", "ssm_scan"]

@@ -11,11 +11,8 @@ Two kernels, both hand-written for Hopper (``sm_90a``) in ``csrc/``:
   ``d = max(a, d) + s`` in the engine's float order, bitwise equal to the
   sequential oracle: what the closed-loop sweep needs.
 
-Each source is compiled by ``nvcc`` into its own shared library with a
-plain C interface, loaded with :mod:`ctypes`, at first use (or by
-:func:`build`), into ``_build/`` beside the package sources.  The
-libraries are named by a hash of source and flags, so an edit rebuilds
-and an unchanged source loads at once.
+Both are built and loaded by :mod:`..cuda_build` (one ``nvcc`` per
+source, all started together, into ``_build/``), with ``--fmad=false``.
 
 Each wrapper takes CPU tensors to its plain PyTorch version in
 ``ref.py``; on a CUDA tensor it checks device, dtype, shape and
@@ -26,83 +23,28 @@ a failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
+from .. import cuda_build
+from ..cuda_build import I64 as _I64, INT as _INT, P as _P
 from .ref import maxplus_chunked_ref, maxplus_depart_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("maxplus_chunked", "maxplus_seq")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-
-_P, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "maxplus_chunked": [_P, _P, _P, _P, _I64, _I64, _INT, _P],
     "maxplus_seq": [_P, _P, _P, _P, _P, _I64, _I64, _P],
 }
+for _name, _args in _ARGTYPES.items():
+    cuda_build.register(
+        _name, CSRC / f"{_name}.cu",
+        {f"{_name}_{dt}": (_args, ctypes.c_int) for dt in ("f64", "f32")},
+        flags=("--fmad=false",))
 # rows (one warp each) per CTA of maxplus_chunked; the output does not
 # depend on it, and it has not been tuned
 WARPS_PER_CTA = 8
-_LIBS: Dict[str, ctypes.CDLL] = {}
-BUILD_LOG: Dict[str, str] = {}   # source -> nvcc's output (ptxas -v)
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
-
-
-def build() -> Dict[str, ctypes.CDLL]:
-    """Compile every source whose library is missing — one ``nvcc`` per
-    source, all started together — and load them all."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in SOURCES:
-        if name in _LIBS or _target(name).exists():
-            continue
-        tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[name] = log
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
-        os.replace(tmp, _target(name))
-    for name in SOURCES:
-        if name not in _LIBS:
-            lib = ctypes.CDLL(str(_target(name)))
-            for dt in ("f64", "f32"):
-                fn = getattr(lib, f"{name}_{dt}")
-                fn.argtypes = _ARGTYPES[name]
-                fn.restype = ctypes.c_int
-            err = getattr(lib, f"{name}_error_string")
-            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-            _LIBS[name] = lib
-    return _LIBS
-
-
-def _entry(name: str, dtype: torch.dtype):
-    lib = _LIBS.get(name) or build()[name]
-    return lib, getattr(lib, f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
 
 
 def _check(name: str, a: torch.Tensor, *others: Optional[torch.Tensor]):
@@ -137,12 +79,8 @@ def _row_init(name: str, a: torch.Tensor, init) -> Optional[torch.Tensor]:
 
 
 def _launch(name: str, wrapper, a: torch.Tensor, *args) -> None:
-    lib, fn = _entry(name, a.dtype)
-    with torch.cuda.device(a.device):
-        err = fn(*args, _P(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+    dt = "f64" if a.dtype == torch.float64 else "f32"
+    cuda_build.launch(name, f"{name}_{dt}", a.device, *args)
     wrapper.launches += 1
 
 

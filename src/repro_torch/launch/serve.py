@@ -1,0 +1,157 @@
+"""Serving launcher: batched requests through the EdgeKV two-tier page
+pool, on the GPU unless told otherwise.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
+        --reduced --device cpu
+
+Flow per batch, as in ``repro/launch/serve.py``: shared system prefixes
+register as *global* pages (content-hashed, deduplicated, ring-placed);
+each sequence's own context becomes *local* pages; prefill builds the
+state, then tokens decode step by step.  The page-pool stats show the
+EdgeKV dedup win.  Only the SSM family (xlstm-125m) is ported; the
+reference's default ``stablelm-3b`` raises ``NotImplementedError`` until
+the dense slice.
+
+:func:`serve` does the work and returns what it measured; :func:`main`
+prints what the reference prints.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduced as reduced_config
+from repro_torch.core.hashring import ChordRing
+from repro_torch.device import resolve_device
+from repro_torch.edgecache import PagePoolManager
+from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models.model import require_ported
+from repro_torch.obs import walltime
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
+          requests: int = 8, prompt_len: int = 24, gen_len: int = 8,
+          shared_prefix_len: int = 16, page_size: int = 8, device=None,
+          seed: int = 0, teacher_tokens: Optional[np.ndarray] = None
+          ) -> Dict[str, Any]:
+    """Serve ``requests`` prompts of ``prompt_len`` tokens (the first
+    ``shared_prefix_len`` shared) for ``gen_len`` greedy tokens each.
+
+    Weights and prompts come from ``seed``.  With ``teacher_tokens``
+    ((requests, gen_len) ints) each decode step is fed those tokens
+    instead of its own argmax, so two runs can be compared step by step.
+    The device is the GPU unless ``device`` names another.
+
+    Returns tokens (requests, gen_len), the logits each token was chosen
+    from (requests, gen_len, vocab), prefill and decode seconds, tokens
+    per second and the page pool's stats.  The kernels' launches are
+    counted on their wrappers (``ssm_scan_kernel.launches``).
+    """
+    # float32 throughout, as the reference serves.  On the card the
+    # matrix products stay in full float32 only while
+    # torch.backends.cuda.matmul.allow_tf32 stays False (PyTorch's
+    # default): TF32 keeps about three digits, and the card's logits would
+    # no longer match the CPU's
+    dev = resolve_device(device, "serve")
+    cfg = get_config(arch)
+    if reduced:
+        cfg = reduced_config(cfg)
+    require_ported(cfg)
+    params = init_params(cfg, seed, device=dev)
+
+    # EdgeKV control plane: 4 serving groups on a ring; we are g0
+    ring = ChordRing(virtual_nodes=8)
+    for g in range(4):
+        ring.add_node(f"g{g}")
+    pool = PagePoolManager("g0", 4096, page_size, ring)
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, cfg.vocab_size, shared_prefix_len,
+                          dtype=np.int32)
+    B = requests
+    prompts = np.concatenate(
+        [np.tile(shared, (B, 1)),
+         rng.integers(1, cfg.vocab_size, (B, prompt_len - shared_prefix_len),
+                      dtype=np.int32)], axis=1)
+
+    # control plane: register pages (dedup happens here)
+    for i in range(B):
+        pool.register_global(f"req{i}", shared)
+        n_local = (prompt_len - shared_prefix_len + gen_len + page_size
+                   - 1) // page_size
+        pool.alloc_local(f"req{i}", n_local)
+
+    forced = (None if teacher_tokens is None
+              else torch.as_tensor(np.asarray(teacher_tokens),
+                                   dtype=torch.int64, device=dev))
+    V = cfg.vocab_size
+    _sync(dev)
+    t0 = walltime()
+    logits, cache = prefill(params, cfg,
+                            torch.as_tensor(prompts, device=dev).long())
+    step_logits = [logits[:, -1, :V].clone()]
+    del logits
+    tok = (step_logits[0].argmax(-1, keepdim=True) if forced is None
+           else forced[:, :1])
+    generated = [tok]
+    _sync(dev)
+    t1 = walltime()
+    for step in range(1, gen_len):
+        lg, cache = decode_step(params, cfg, cache, tok)
+        step_logits.append(lg[:, :V])
+        tok = (lg[:, :V].argmax(-1, keepdim=True) if forced is None
+               else forced[:, step:step + 1])
+        generated.append(tok)
+    out = torch.cat(generated, dim=1).cpu().numpy()
+    _sync(dev)
+    t2 = walltime()
+    s = pool.stats
+    return {
+        "arch": cfg.name, "device": str(dev), "tokens": out,
+        "logits": torch.stack(step_logits, dim=1).cpu().numpy(),
+        "prefill_s": t1 - t0, "decode_s": t2 - t1,
+        "tok_per_s": B * gen_len / (t2 - t0),
+        "pool": {"dedup_hits": s["dedup_hits"],
+                 "remote_fetches": s["remote_fetch"],
+                 "slots_used": pool.used_slots},
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-3b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=24)
+    ap.add_argument("--gen-len", type=int, default=8)
+    ap.add_argument("--shared-prefix-len", type=int, default=16)
+    ap.add_argument("--page-size", type=int, default=8)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain versions)")
+    args = ap.parse_args()
+
+    r = serve(args.arch, reduced=args.reduced, requests=args.requests,
+              prompt_len=args.prompt_len, gen_len=args.gen_len,
+              shared_prefix_len=args.shared_prefix_len,
+              page_size=args.page_size, device=args.device)
+    B, dt = args.requests, r["prefill_s"] + r["decode_s"]
+    print(f"served {B} requests x {args.gen_len} tokens "
+          f"in {dt:.2f}s ({r['tok_per_s']:.1f} tok/s)")
+    print(f"generated[0]: {r['tokens'][0].tolist()}")
+    s = r["pool"]
+    print(f"edgekv pages: dedup_hits={s['dedup_hits']} "
+          f"remote_fetches={s['remote_fetches']} "
+          f"slots_used={s['slots_used']} "
+          f"(shared prefix stored once for {B} requests)")
+
+
+if __name__ == "__main__":
+    main()

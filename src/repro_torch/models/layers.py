@@ -1,0 +1,66 @@
+"""Shared neural building blocks (plain PyTorch, parameters as explicit
+dictionaries of tensors), the counterparts of ``repro/models/layers.py``.
+
+Initial values come from an explicit :class:`torch.Generator`, so a
+model is a function of its seed; they are not the reference's numbers
+(``jax.random`` draws others), so tests load the reference's weights
+through :mod:`.convert` instead.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(gen: torch.Generator, shape: Sequence[int],
+               dtype: torch.dtype = torch.float32,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Truncated normal at +-2 standard deviations, scaled by ``scale``
+    or 1/sqrt(fan_in), drawn on the CPU from ``gen``."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    t = torch.empty(tuple(shape), dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (std * t).to(dtype)
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * gamma.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def apply_norm(kind: str, x: torch.Tensor,
+               gamma: torch.Tensor) -> torch.Tensor:
+    return rmsnorm(x, gamma) if kind == "rmsnorm" else layernorm(x, gamma)
+
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
+             dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    p = {"w_up": dense_init(gen, (d_model, d_ff), dtype),
+         "w_down": dense_init(gen, (d_ff, d_model), dtype)}
+    if activation == "swiglu":
+        p["w_gate"] = dense_init(gen, (d_model, d_ff), dtype)
+    return p
+
+
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+              activation: str) -> torch.Tensor:
+    if activation == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
+    return h @ p["w_down"]

@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hashring import ChordRing, stable_hash
+from repro_torch.device import resolve_device
 from repro_torch.kernels.maxplus_scan import maxplus_depart
 from repro_torch.obs import walltime
 from repro_torch.obs.trace import STAGES as OBS_STAGES
@@ -239,20 +240,6 @@ def _topology(groups: int, virtual_nodes: int) -> _Topology:
     return topo
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device a sweep runs on: the GPU unless the caller names
-    another.  No silent CPU fallback — with no GPU visible and no device
-    named, this raises."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "run_sweep runs on the GPU by default and no CUDA device "
-                "is visible; pass device='cpu' to run the plain versions "
-                "on the CPU")
-        device = "cuda"
-    return torch.device(device)
-
-
 def to_device(cols: Dict[str, np.ndarray],
               device) -> Dict[str, torch.Tensor]:
     """Host numpy columns as tensors on ``device``, each keeping its
@@ -405,7 +392,7 @@ def run_sweep(points: Iterable[SweepPoint], *, duration: float = 2.0,
         raise ValueError(f"unknown scan_backend {scan_backend!r}")
     if loop == "open" and scan_backend == "seq":
         raise ValueError("scan_backend='seq' is closed-loop only")
-    dev = resolve_device(device)
+    dev = resolve_device(device, "run_sweep")
     if loop == "closed":
         return _run_closed(points, setting=setting, seed=seed,
                            service=service, virtual_nodes=virtual_nodes,

@@ -49,3 +49,25 @@ def test_run_sweep_defaults_to_the_gpu():
     with pytest.raises(RuntimeError, match="GPU"):
         run_sweep([SweepPoint(groups=3)], duration=0.5)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_serving_imports_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "import repro_torch.launch.serve, repro_torch.models.convert; "
+            "assert 'repro' not in sys.modules")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_serve_defaults_to_the_gpu():
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import serve
+    if torch.cuda.is_available():
+        assert resolve_device(None, "serve").type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="GPU"):
+        serve("xlstm-125m", reduced=True)
+    with pytest.raises(RuntimeError, match="GPU"):
+        serve("xlstm-125m", reduced=True, device="cuda")

@@ -18,6 +18,9 @@ from repro_torch.kernels.maxplus_scan import (maxplus_chunked,
                                               maxplus_depart,
                                               maxplus_depart_ref,
                                               maxplus_seq)
+from repro_torch.kernels.ssm_scan import (ssd_chunked_ref, ssd_ref, ssm_scan,
+                                          ssm_scan_kernel)
+from repro_torch.launch.serve import serve
 from repro_torch.sim.sweep import closed_grid, run_sweep, sweep_grid
 
 pytestmark = pytest.mark.cuda
@@ -99,3 +102,85 @@ def test_sweep_on_gpu_matches_cpu(cuda_device):
     _assert_columns_match(got, want, 0.0)
     assert got.info["rounds"] == want.info["rounds"]
     assert [asdict(p) for p in got.points] == [asdict(p) for p in pts]
+
+
+def ssd_inputs(BH, S, P, N, seed, decay=None):
+    """The reference kernel tests' distributions, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((BH, S, P))
+    loga = (-np.logaddexp(0.0, rng.standard_normal((BH, S, 1)))
+            if decay is None else np.full((BH, S, 1), decay))
+    dt = 1.0 / (1.0 + np.exp(-rng.standard_normal((BH, S, 1))))
+    Bm = rng.standard_normal((BH, S, N)) / np.sqrt(N)
+    Cm = rng.standard_normal((BH, S, N)) / np.sqrt(N)
+    h0 = rng.standard_normal((BH, N, P))
+    return [torch.from_numpy(a).float() for a in (x, loga, dt, Bm, Cm, h0)]
+
+
+def assert_scaled_close(got, want, tol):
+    """max |got - want| <= tol * max(1, max |want|)."""
+    err = float((got.cpu() - want).abs().max())
+    assert err <= tol * max(1.0, float(want.abs().max())), err
+
+
+# the reference kernel tests' four cases, mLSTM's numerator and
+# denominator scans, and widths that end inside a tile
+@pytest.mark.parametrize("BH,S,chunk,P,N", [
+    (3, 32, 8, 16, 8), (3, 64, 16, 8, 16), (3, 16, 16, 32, 8),
+    (3, 48, 8, 16, 16), (8, 256, 128, 384, 384), (8, 256, 128, 1, 384),
+    (2, 40, 20, 70, 45)])
+def test_ssd_kernel_vs_plain(cuda_device, BH, S, chunk, P, N):
+    x, loga, dt, Bm, Cm, h0 = ssd_inputs(BH, S, P, N, S * P + N)
+    for state in (None, h0):
+        want_y, want_h = ssd_chunked_ref(x, loga, dt, Bm, Cm, chunk=chunk,
+                                         h0=state)
+        got_y, got_h = ssm_scan(
+            *(t.to(cuda_device) for t in (x, loga, dt, Bm, Cm)),
+            chunk=chunk, h0=None if state is None else state.to(cuda_device))
+        assert_scaled_close(got_y, want_y, 1e-4)
+        assert_scaled_close(got_h, want_h, 1e-4)
+    if S <= 64:   # and the sequential oracle
+        assert_scaled_close(got_y, ssd_ref(x, loga, dt, Bm, Cm, h0)[0], 1e-4)
+
+
+def test_ssd_kernel_strong_decay_stays_finite(cuda_device):
+    """60 nats a token: above the diagonal exp(cum_t - cum_s) is inf, so a
+    kernel that multiplied by the mask would give nan."""
+    x, loga, dt, Bm, Cm, _ = ssd_inputs(4, 256, 64, 32, 5, decay=-60.0)
+    got_y, got_h = ssm_scan(*(t.to(cuda_device)
+                              for t in (x, loga, dt, Bm, Cm)), chunk=128)
+    assert torch.isfinite(got_y).all() and torch.isfinite(got_h).all()
+    want = torch.einsum("bsd,bsd,bsp->bsp", Cm, Bm, x * dt)
+    assert_scaled_close(got_y, want, 1e-4)
+
+
+def test_ssd_wrapper_counts_and_rejects(cuda_device):
+    x, loga, dt, Bm, Cm, _ = (t.to(cuda_device)
+                              for t in ssd_inputs(2, 32, 8, 8, 1))
+    before = ssm_scan_kernel.launches
+    ssm_scan(x, loga, dt, Bm, Cm, chunk=8)
+    assert ssm_scan_kernel.launches == before + 1
+    with pytest.raises(TypeError):
+        ssm_scan_kernel(x.double(), loga, dt, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError):
+        ssm_scan_kernel(x[:, :, ::2], loga, dt, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError):
+        ssm_scan_kernel(x, loga, dt, Bm, Cm, chunk=12)   # does not divide
+    with pytest.raises(ValueError):
+        ssm_scan_kernel(x, loga, dt, Bm, Cm.cpu(), chunk=8)
+
+
+def test_serve_on_gpu_matches_cpu(cuda_device):
+    """reduced xlstm-125m served on the card, then on the CPU fed the
+    card's tokens: the same logits (scaled 1e-4), and the prefill went
+    through the kernel (numerator + denominator per mLSTM layer)."""
+    kw = dict(reduced=True, requests=3, prompt_len=48, gen_len=4,
+              shared_prefix_len=16, seed=1)
+    before = ssm_scan_kernel.launches
+    gpu = serve("xlstm-125m", device=cuda_device, **kw)
+    assert ssm_scan_kernel.launches - before == 2 * 2   # 2 mLSTM layers
+    cpu = serve("xlstm-125m", device="cpu", teacher_tokens=gpu["tokens"],
+                **kw)
+    assert gpu["pool"] == cpu["pool"]
+    err = np.abs(gpu["logits"] - cpu["logits"]).max()
+    assert err <= 1e-4 * max(1.0, np.abs(cpu["logits"]).max()), err
