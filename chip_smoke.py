@@ -7,9 +7,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 and holds each against its plain PyTorch version on the card, and times
 it: the max-plus scans at (1000, 8192), the SSD scan at the serve path's
 own scans (mLSTM's numerator and denominator, and a strong decay that
-must stay finite; ``y`` and the final state).  Then it drives the port's
-two main paths through their entry points.  The batched sweep engine,
-``run_sweep``:
+must stay finite; ``y`` and the final state), flash attention at the
+dense serve path's prefill (causal) and decode (one query over the
+cache's valid prefix) shapes.  Then it drives the port's main paths
+through their entry points.  The batched sweep engine, ``run_sweep``:
 
 * open loop: the 64-point ``sweep_grid()``, checked <= 1e-9 per column
   against the same grid run by the port on the CPU (plain versions);
@@ -21,14 +22,20 @@ two main paths through their entry points.  The batched sweep engine,
 
 The LLM serving path, ``repro_torch.launch.serve.serve``:
 
-* ``serve_xlstm``: full-width xlstm-125m (random weights from seed 0), 8
-  requests of 1024 tokens with a 256-token shared prefix, 32 generated
-  tokens each, with the SSD kernel's launches checked per prefill, then
-  the split of a warm prefill and decode step (per layer kind, and the
-  device's busy share under torch.profiler);
-* the card's serve run against the port's CPU run of the same seed at 2
-  requests x 256 tokens, teacher-forced with the card's tokens, logits
-  within ``LOGIT_TOL``.
+* ``serve_xlstm``: full-width xlstm-125m (random weights from seed 0,
+  drawn on the card), 8 requests of 1024 tokens with a 256-token shared
+  prefix, 32 generated tokens each, with the SSD kernel's launches
+  checked per prefill, then the split of a warm prefill and decode step
+  (per layer kind, and the device's busy share and kernel time by kind
+  under torch.profiler);
+* ``serve_stablelm``: full-width stablelm-3b (32 layers, 2.8B random
+  weights drawn on the card), the same requests, with the flash kernel's
+  launches checked (32 per prefill, 32 per decode step) and the same
+  split (layers against the LM head, attention against the products);
+* for each model, the card's serve run against a CPU run handed the
+  card's weights, teacher-forced with the card's tokens, logits within
+  ``LOGIT_TOL``: xlstm-125m whole at 2 requests x 256 tokens,
+  stablelm-3b at full width cut to 2 layers, 2 requests x 128 tokens.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path and read just after, and a path that never launched its
@@ -78,11 +85,20 @@ SSD_TOL = 1e-4
 # max(1, max |CPU|), the bound the port's CPU tests hold it to against the
 # reference and the GPU test to the CPU
 LOGIT_TOL = 1e-4
-# serve_xlstm, the main serving path, and the smaller CPU comparison
+# flash attention against its plain version: max |kernel - plain| <= tol
+# * max(1, max |plain|), the reference kernel tests' own 2e-5 (float32
+# sums over up to 1056 keys in another order)
+FLASH_TOL = 2e-5
+# the serving paths (full width) and the smaller CPU comparisons; a
+# comparison's "layers" cuts the depth, keeping the width
 SERVE = dict(arch="xlstm-125m", requests=8, prompt_len=1024,
              shared_prefix_len=256, gen_len=32, seed=0)
+SERVE_DENSE = dict(SERVE, arch="stablelm-3b")
 SERVE_VS_CPU = dict(arch="xlstm-125m", requests=2, prompt_len=256,
                     shared_prefix_len=64, gen_len=8, seed=0)
+SERVE_DENSE_VS_CPU = dict(arch="stablelm-3b", layers=2, requests=2,
+                          prompt_len=128, shared_prefix_len=32, gen_len=8,
+                          seed=0)
 
 
 def log(*parts) -> None:
@@ -377,11 +393,104 @@ def ssd_kernel_phase(card: dict, dev) -> dict:
                                          "bound_by", "max_abs_err")})
 
 
+def flash_work(B: int, Sq: int, H: int, K: int, hd: int, kv_len: int,
+               causal: bool) -> tuple:
+    """(bytes, operations) one attention call needs: q read and o written
+    once, the valid K and V (keys below ``kv_len``) read once, and two
+    operations a multiply-add for q k^T and p v over the visible (query,
+    key) pairs only (the causal triangle when causal)."""
+    pairs = (sum(min(i + 1, kv_len) for i in range(Sq)) if causal
+             else Sq * kv_len)
+    floats = 2 * B * Sq * H * hd + 2 * B * kv_len * K * hd
+    return 4 * floats, 4 * B * H * pairs * hd
+
+
+def flash_kernel_phase(card: dict, dev) -> dict:
+    """The flash kernel at the dense serve path's shapes, stablelm-3b's 32
+    heads of 80 for 8 requests: prefill (1024 tokens, causal) and decode
+    (one query over a 1056-slot cache whose valid length, a device
+    int32, is 1025 and 1055); against the plain chunked version and the
+    naive oracle on the same inputs, then timed beside the plain version,
+    its bound and torch's scaled_dot_product_attention (float32, the
+    yardstick; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_chunked_ref, flash_attention_ref, flash_fwd)
+
+    B, S, H, hd, S_max = 8, 1024, 32, 80, 1056
+    gen = torch.Generator(dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def fold(t):                     # (B, S, H, hd) -> (B * H, S, hd)
+        return t.transpose(1, 2).reshape(B * H, t.shape[1], hd)
+
+    q, k, v = randn(B, S, H, hd), randn(B, S, H, hd), randn(B, S, H, hd)
+    q1, kc, vc = randn(B, 1, H, hd), randn(B, S_max, H, hd), randn(
+        B, S_max, H, hd)
+    cases = {"prefill": (lambda: flash_fwd(q, k, v, causal=True),
+                         (q, k, v), dict(causal=True), S, True)}
+    for n in (S + 1, S_max - 1):
+        n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
+        cases[f"decode kv_len {n}"] = (
+            lambda n_dev=n_dev: flash_fwd(q1, kc, vc, causal=False,
+                                          kv_len=n_dev),
+            (q1, kc, vc), dict(causal=False, seq_k=n_dev), n, False)
+    out = {}
+    for case, (run, (a, b, c), kw, kv_len, causal) in cases.items():
+        got = fold(run())
+        check(bool(torch.isfinite(got).all()), f"flash {case}: not finite")
+        folded = [fold(t) for t in (a, b, c)]
+        errs = {}
+        for what, plain_fn in (("plain", flash_attention_chunked_ref),
+                               ("naive", flash_attention_ref)):
+            want = plain_fn(*folded, **kw)
+            err = float((got - want).abs().max())
+            bound = FLASH_TOL * max(1.0, float(want.abs().max()))
+            check(err <= bound, f"flash {case}: max_abs_err vs {what} {err}"
+                  f" > {bound}")
+            errs[what] = err
+        del want, got
+        nbytes, ops = flash_work(B, a.shape[1], H, H, hd, kv_len, causal)
+        b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
+        ms = time_ms(run)
+        plain_ms = time_ms(lambda: flash_attention_chunked_ref(*folded, **kw),
+                           reps=1, windows=3)
+        qt = a.transpose(1, 2)
+        kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (b, c))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        log(f"flash_fwd {case} (B {B}, Sq {a.shape[1]}, Skv {b.shape[1]}, "
+            f"H {H}, hd {hd}): max_abs_err vs plain {errs['plain']:.3e}, "
+            f"vs naive {errs['naive']:.3e} (tol {FLASH_TOL} x max(1, "
+            f"|plain|)); {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
+            f"{ops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s "
+            f"achieved), plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms "
+            f"(scaled_dot_product_attention, float32)")
+        out[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=errs["plain"],
+                         library_ms=lib_ms)
+    pre, dec = out["prefill"], out[f"decode kv_len {S + 1}"]
+    return dict(
+        name="flash_fwd", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:87",
+        launches=0, **pre, decode=dec)
+
+
+# kernel name fragment -> the kind the time splits report it under
+KERNEL_KINDS = (("flash_", "flash_fwd"), ("ssd_chunked", "ssd_chunked"),
+                ("gemm", "products"), ("xmma", "products"))
+
+
 def device_busy(fn) -> tuple:
-    """(device busy ms, kernels) of one call of ``fn`` under
-    torch.profiler: the summed durations of the CUDA kernels it ran
-    (one stream, so they do not overlap); (None, 0) if the profiler saw
-    no device activity."""
+    """(device busy ms, kernels, busy ms by kind) of one call of ``fn``
+    under torch.profiler: the summed durations of the CUDA kernels it ran
+    (one stream, so they do not overlap); (None, 0, {}) if the profiler
+    saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -391,70 +500,201 @@ def device_busy(fn) -> tuple:
         torch.cuda.synchronize()
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
-        return None, 0
-    return sum(e.time_range.elapsed_us() for e in kern) / 1e3, len(kern)
+        return None, 0, {}
+    kinds: dict = {}
+    for e in kern:
+        kind = next((k for frag, k in KERNEL_KINDS
+                     if frag in e.name.lower()), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    return sum(kinds.values()), len(kern), kinds
 
 
-def serve_breakdown(dev) -> dict:
-    """Where a warm prefill and a warm decode step of ``serve_xlstm``'s
-    shape go: host wall per layer kind (synchronized forward hooks on
-    the layer modules), and the device's busy share from torch.profiler.
-    Random weights from seed 0 and random prompt tokens, as serve."""
+def serve_breakdown(dev, spec: dict, groups: dict, kernel: str) -> dict:
+    """Where a warm prefill and a warm decode step of ``spec``'s shape go:
+    host wall per group of layers (``groups``: name -> the model's layer
+    list; synchronized forward hooks), the rest (embedding, final norm,
+    LM head), the launches of ``kernel`` per call, and the device's busy
+    share and kernel time by kind from torch.profiler.  Random weights
+    from the spec's seed, drawn on the card, and random prompt tokens,
+    as serve."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import KERNELS
     from repro_torch.models import decode_step, init_params, prefill
-    cfg = get_config(SERVE["arch"])
-    params = init_params(cfg, SERVE["seed"], device=dev)
-    toks = torch.randint(1, cfg.vocab_size,
-                         (SERVE["requests"], SERVE["prompt_len"]),
+    cfg = get_config(spec["arch"])
+    params = init_params(cfg, spec["seed"], device=dev)
+    B, S = spec["requests"], spec["prompt_len"]
+    toks = torch.randint(1, cfg.vocab_size, (B, S),
                          generator=torch.Generator().manual_seed(0)).to(dev)
-    logits, cache = prefill(params, cfg, toks)            # warm-up
+    max_len = S + spec["gen_len"]
+    logits, cache = prefill(params, cfg, toks, max_len=max_len)  # warm-up
     tok = logits[:, -1].argmax(-1, keepdim=True)
     del logits
-    spent = {"mlstm": 0.0, "slstm": 0.0}
+    spent = {g: 0.0 for g in groups}
     started = {}
 
     def pre(mod, args):
         torch.cuda.synchronize()
         started[mod] = time.perf_counter()
 
-    def post(kind):
+    def post(group):
         def hook(mod, args, out):
             torch.cuda.synchronize()
-            spent[kind] += time.perf_counter() - started[mod]
+            spent[group] += time.perf_counter() - started[mod]
         return hook
 
     hooks = []
-    for kind in spent:
-        for mod in getattr(params, f"{kind}_layers"):
+    for group, attr in groups.items():
+        for mod in getattr(params, attr):
             hooks += [mod.register_forward_pre_hook(pre),
-                      mod.register_forward_hook(post(kind))]
+                      mod.register_forward_hook(post(group))]
+    wrapper = KERNELS[kernel]
+    wrapper.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prefill(params, cfg, toks)
+    prefill(params, cfg, toks, max_len=max_len)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     for h in hooks:
         h.remove()
+    out = dict(prefill_s=total, groups=spent,
+               prefill_launches=wrapper.launches)
     decode_step(params, cfg, cache, tok)                   # warm-up
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    wrapper.launches = 0
     steps = 5
+    t0 = time.perf_counter()
     for _ in range(steps):
         decode_step(params, cfg, cache, tok)
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / steps
-    out = dict(prefill_s=total, mlstm_s=spent["mlstm"],
-               slstm_s=spent["slstm"], decode_step_s=step_s)
-    t0 = time.perf_counter()
-    out["prefill_busy_ms"], out["prefill_kernels"] = device_busy(
-        lambda: prefill(params, cfg, toks))
-    out["prefill_traced_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out["decode_busy_ms"], out["decode_kernels"] = device_busy(
-        lambda: decode_step(params, cfg, cache, tok))
-    out["decode_traced_s"] = time.perf_counter() - t0
+    out["decode_step_s"] = (time.perf_counter() - t0) / steps
+    out["decode_launches"] = wrapper.launches / steps
+    for what, fn in (("prefill",
+                      lambda: prefill(params, cfg, toks, max_len=max_len)),
+                     ("decode", lambda: decode_step(params, cfg, cache,
+                                                    tok))):
+        t0 = time.perf_counter()
+        (out[f"{what}_busy_ms"], out[f"{what}_kernels"],
+         out[f"{what}_kinds"]) = device_busy(fn)
+        out[f"{what}_traced_s"] = time.perf_counter() - t0
     return out
+
+
+def log_breakdown(path: str, bd: dict) -> None:
+    parts = [f"{g} {t:.4f} s ({t / bd['prefill_s']:.1%})"
+             for g, t in bd["groups"].items()]
+    rest = bd["prefill_s"] - sum(bd["groups"].values())
+    log(f"{path} warm prefill {bd['prefill_s']:.4f} s: " + ", ".join(parts)
+        + f", embedding, final norm and LM head {rest:.4f} s "
+        f"({rest / bd['prefill_s']:.1%}); kernel launches "
+        f"{bd['prefill_launches']} a prefill; warm decode step "
+        f"{bd['decode_step_s'] * 1e3:.3f} ms, kernel launches "
+        f"{bd['decode_launches']:g} a step")
+    # the profiler slows the host many times over, not the kernels: the
+    # busy share is taken against the untraced warm wall time
+    for what, wall in (("prefill", bd["prefill_s"]),
+                       ("decode", bd["decode_step_s"])):
+        busy, n = bd[f"{what}_busy_ms"], bd[f"{what}_kernels"]
+        wall *= 1e3
+        log(f"{path} {what} under torch.profiler: "
+            + ("device busy not measured (the profiler saw no kernels)"
+               if busy is None else
+               f"{n} kernels, device busy {busy:.3f} ms against "
+               f"{wall:.3f} ms of untraced warm wall: the device idles "
+               f"{1 - busy / wall:.1%} (traced wall "
+               f"{bd[f'{what}_traced_s'] * 1e3:.3f} ms); busy by kind "
+               + ", ".join(f"{k} {t:.3f} ms ({t / busy:.1%})" for k, t in
+                           sorted(bd[f"{what}_kinds"].items(),
+                                  key=lambda kv: -kv[1]))))
+
+
+def serve_path(dev, spec: dict, kernel: str, per_prefill: int,
+               per_step: int) -> dict:
+    """Serve ``spec`` at full width on the card and check what comes out:
+    token and logit shapes, finite logits, greedy tokens, the page pool,
+    and ``kernel``'s launches, ``per_prefill`` in the prefill and
+    ``per_step`` in each decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = serve(device=dev, **spec)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    cfg = get_config(spec["arch"])
+    B, G = spec["requests"], spec["gen_len"]
+    name = f"serve_{spec['arch'].split('-')[0]}"
+    want = {"prefill": per_prefill, "decode": per_step * (G - 1)}
+    check(res["launches"][kernel] == want,
+          f"{name}: {kernel} launches {res['launches'][kernel]}, expected "
+          f"{want}")
+    check(res["tokens"].shape == (B, G), f"{name}: token shape")
+    check(res["logits"].shape == (B, G, cfg.vocab_size),
+          f"{name}: logit shape")
+    check(bool(np.isfinite(res["logits"]).all()),
+          f"{name}: logits not finite")
+    check(np.array_equal(res["tokens"], res["logits"].argmax(-1)),
+          f"{name}: tokens are not the argmax of their logits")
+    # the shared prefix's pages (serve's default 8 tokens a page) are
+    # stored once and every later request hits them; each request also
+    # holds its own local pages
+    pages = spec["shared_prefix_len"] // 8
+    local = (spec["prompt_len"] - spec["shared_prefix_len"] + G + 7) // 8
+    check(res["pool"]["dedup_hits"] == (B - 1) * pages
+          and res["pool"]["slots_used"] == pages + B * local,
+          f"{name}: page pool {res['pool']}")
+    log(f"{name}: {B} requests x {spec['prompt_len']} prompt tokens "
+        f"(shared prefix {spec['shared_prefix_len']}) + {G} generated; "
+        f"prefill {res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s "
+        f"({G - 1} steps, {res['decode_s'] / (G - 1) * 1e3:.3f} ms each), "
+        f"{res['tok_per_s']:.1f} tok/s; peak device memory {peak:.3f} GiB; "
+        f"{kernel} launches {res['launches'][kernel]} (expected {want}); "
+        f"pool {res['pool']}; generated[0][:8] "
+        f"{res['tokens'][0][:8].tolist()}")
+    return res
+
+
+def serve_vs_cpu(dev, spec: dict) -> None:
+    """The card's serve run against a CPU run handed the card's weights
+    and fed the card's tokens: logits within ``LOGIT_TOL``.  Also reads
+    (does not check) the same comparison with TF32 matrix products, which
+    the serve path leaves off."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import init_params
+    kw = dict(spec)
+    cfg = get_config(kw.pop("arch"))
+    if "layers" in kw:
+        cfg = dataclasses.replace(cfg, n_layers=kw.pop("layers"))
+    model = init_params(cfg, kw["seed"], device=dev)
+    gpu = serve(device=dev, params=model, **kw)
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = serve(device=dev, params=model, teacher_tokens=gpu["tokens"],
+                     **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    t0 = time.perf_counter()
+    cpu = serve(device="cpu", params=model.cpu(),
+                teacher_tokens=gpu["tokens"], **kw)
+    err = float(np.max(np.abs(gpu["logits"] - cpu["logits"])))
+    bound = LOGIT_TOL * max(1.0, float(np.max(np.abs(cpu["logits"]))))
+    what = (f"{cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}) "
+            f"vs CPU")
+    check(err <= bound, f"{what}: logits max_abs_err {err} > {bound}")
+    agree = float(np.mean(gpu["tokens"] == cpu["logits"].argmax(-1)))
+    tf32_err = float(np.max(np.abs(tf32["logits"] - cpu["logits"])))
+    log(f"{what} ({kw['requests']} requests x {kw['prompt_len']} tokens + "
+        f"{kw['gen_len']}, teacher-forced with the card's tokens, the "
+        f"card's weights): logits max_abs_err {err:.3e} <= {bound:.3e}; "
+        f"card's tokens = CPU argmax for {agree:.0%}; CPU run "
+        f"{time.perf_counter() - t0:.1f} s; with allow_tf32=True "
+        f"{tf32_err:.3e}, {'above' if tf32_err > bound else 'within'} the "
+        f"bound")
 
 
 def main() -> int:
@@ -470,9 +710,9 @@ def main() -> int:
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention import flash_fwd
     from repro_torch.kernels.maxplus_scan import kernel as mp_kernel
     from repro_torch.kernels.ssm_scan import ssm_scan_kernel
-    from repro_torch.launch.serve import serve
     from repro_torch.sim.cluster import ServiceParams
     from repro_torch.sim.sweep import SweepPoint, run_sweep, sweep_grid
 
@@ -499,9 +739,10 @@ def main() -> int:
     # ---------------------------------------------------- kernels alone
     kernels = kernel_phase(card, dev)
     kernels["ssd_chunked"] = ssd_kernel_phase(card, dev)
+    kernels["flash_fwd"] = flash_kernel_phase(card, dev)
     wrappers = {"maxplus_chunked": mp_kernel.maxplus_chunked,
                 "maxplus_seq": mp_kernel.maxplus_seq,
-                "ssd_chunked": ssm_scan_kernel}
+                "ssd_chunked": ssm_scan_kernel, "flash_fwd": flash_fwd}
     by_path: dict = {name: {} for name in wrappers}
 
     def drive(path: str, needs: str, fn):
@@ -606,93 +847,51 @@ def main() -> int:
             f"path's device time")
 
     # ------------------------------------------------ serving, full width
-    torch.cuda.reset_peak_memory_stats(dev)
-    res = drive("serve_xlstm", "ssd_chunked",
-                lambda: serve(device=dev, **SERVE))
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
     cfg = get_config(SERVE["arch"])
     n_mlstm = cfg.n_layers - len(cfg.slstm_layers)
-    want = 2 * n_mlstm     # numerator + denominator scan per mLSTM layer
-    check(by_path["ssd_chunked"]["serve_xlstm"] == want,
-          f"serve_xlstm: {by_path['ssd_chunked']['serve_xlstm']} SSD "
-          f"launches, expected {want} (one prefill)")
-    B, G = SERVE["requests"], SERVE["gen_len"]
-    check(res["tokens"].shape == (B, G), "serve_xlstm: token shape")
-    check(res["logits"].shape == (B, G, cfg.vocab_size),
-          "serve_xlstm: logit shape")
-    check(bool(np.isfinite(res["logits"]).all()),
-          "serve_xlstm: logits not finite")
-    check(np.array_equal(res["tokens"], res["logits"].argmax(-1)),
-          "serve_xlstm: tokens are not the argmax of their logits")
-    # the shared prefix's pages (serve's default 8 tokens a page) are
-    # stored once and every later request hits them; each request also
-    # holds its own local pages
-    pages = SERVE["shared_prefix_len"] // 8
-    local = (SERVE["prompt_len"] - SERVE["shared_prefix_len"] + G + 7) // 8
-    check(res["pool"]["dedup_hits"] == (B - 1) * pages
-          and res["pool"]["slots_used"] == pages + B * local,
-          f"serve_xlstm: page pool {res['pool']}")
-    log(f"serve_xlstm: {B} requests x {SERVE['prompt_len']} prompt tokens "
-        f"(shared prefix {SERVE['shared_prefix_len']}) + {G} generated; "
-        f"prefill {res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s "
-        f"({G - 1} steps, {res['decode_s'] / (G - 1) * 1e3:.3f} ms each), "
-        f"{res['tok_per_s']:.1f} tok/s; peak device memory {peak:.3f} GiB; "
-        f"SSD launches {by_path['ssd_chunked']['serve_xlstm']} (expected "
-        f"{want}); pool {res['pool']}; generated[0][:8] "
-        f"{res['tokens'][0][:8].tolist()}")
+    # numerator + denominator scan per mLSTM layer, in prefill only
+    drive("serve_xlstm", "ssd_chunked",
+          lambda: serve_path(dev, SERVE, "ssd_chunked", 2 * n_mlstm, 0))
     k3 = kernels["ssd_chunked"]
     scan_s = n_mlstm * (k3["ms"] + k3["denominator"]["ms"]) / 1e3
-    bd = serve_breakdown(dev)
-    rest = bd["prefill_s"] - bd["mlstm_s"] - bd["slstm_s"]
-    log(f"serve_xlstm warm prefill {bd['prefill_s']:.4f} s: {n_mlstm} mLSTM "
-        f"layers {bd['mlstm_s']:.4f} s ({bd['mlstm_s'] / bd['prefill_s']:.1%}"
-        f"; of which the SSD kernel {scan_s:.4f} s = {n_mlstm} x (numerator "
-        f"{k3['ms']:.4f} + denominator {k3['denominator']['ms']:.4f}) ms, "
-        f"{scan_s / bd['prefill_s']:.1%} of prefill), 2 sLSTM layers "
-        f"{bd['slstm_s']:.4f} s ({bd['slstm_s'] / bd['prefill_s']:.1%}), "
-        f"embedding, final norm and logits {rest:.4f} s "
-        f"({rest / bd['prefill_s']:.1%}); warm decode step "
-        f"{bd['decode_step_s'] * 1e3:.3f} ms")
-    # the profiler slows the host many times over, not the kernels: the
-    # busy share is taken against the untraced warm wall time
-    for what, wall in (("prefill", bd["prefill_s"]),
-                       ("decode", bd["decode_step_s"])):
-        busy, n = bd[f"{what}_busy_ms"], bd[f"{what}_kernels"]
-        wall *= 1e3
-        log(f"serve_xlstm {what} under torch.profiler: "
-            + ("device busy not measured (the profiler saw no kernels)"
-               if busy is None else
-               f"{n} kernels, device busy {busy:.3f} ms against "
-               f"{wall:.3f} ms of untraced warm wall: the device idles "
-               f"{1 - busy / wall:.1%} (traced wall "
-               f"{bd[f'{what}_traced_s'] * 1e3:.3f} ms)"))
+    bd = serve_breakdown(dev, SERVE, {"mLSTM": "mlstm_layers",
+                                      "sLSTM": "slstm_layers"},
+                         "ssd_chunked")
+    check(bd["prefill_launches"] == 2 * n_mlstm,
+          f"serve_xlstm breakdown: {bd['prefill_launches']} SSD launches")
+    log_breakdown("serve_xlstm", bd)
+    log(f"serve_xlstm: of the warm prefill, the SSD kernel {scan_s:.4f} s "
+        f"= {n_mlstm} x (numerator {k3['ms']:.4f} + denominator "
+        f"{k3['denominator']['ms']:.4f}) ms from the kernel phase, "
+        f"{scan_s / bd['prefill_s']:.1%}")
 
-    # --------------------------- the card's serve run against the CPU's
-    gpu = serve(device=dev, **SERVE_VS_CPU)
-    t0 = time.perf_counter()
-    cpu = serve(device="cpu", teacher_tokens=gpu["tokens"], **SERVE_VS_CPU)
-    err = float(np.max(np.abs(gpu["logits"] - cpu["logits"])))
-    bound = LOGIT_TOL * max(1.0, float(np.max(np.abs(cpu["logits"]))))
-    check(err <= bound, f"serve vs CPU: logits max_abs_err {err} > {bound}")
-    agree = float(np.mean(gpu["tokens"] == cpu["logits"].argmax(-1)))
-    log(f"serve vs CPU ({SERVE_VS_CPU['requests']} requests x "
-        f"{SERVE_VS_CPU['prompt_len']} tokens + {SERVE_VS_CPU['gen_len']}, "
-        f"teacher-forced with the card's tokens): logits max_abs_err "
-        f"{err:.3e} <= {bound:.3e}; card's tokens = CPU argmax for "
-        f"{agree:.0%}; CPU run {time.perf_counter() - t0:.1f} s")
-    # a reading, not a check: the same run with TF32 matrix products,
-    # which the serve path leaves off, against the same bound
-    tf32_was = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        tf32 = serve(device=dev, teacher_tokens=gpu["tokens"],
-                     **SERVE_VS_CPU)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32_was
-    tf32_err = float(np.max(np.abs(tf32["logits"] - cpu["logits"])))
-    log(f"serve vs CPU with allow_tf32=True: logits max_abs_err "
-        f"{tf32_err:.3e}, {'above' if tf32_err > bound else 'within'} the "
-        f"bound {bound:.3e}")
+    dcfg = get_config(SERVE_DENSE["arch"])
+    L = dcfg.n_layers
+    # one attention call a layer, in prefill and in each decode step
+    drive("serve_stablelm", "flash_fwd",
+          lambda: serve_path(dev, SERVE_DENSE, "flash_fwd", L, L))
+    check(by_path["flash_fwd"]["serve_stablelm"]
+          == L * SERVE_DENSE["gen_len"],
+          f"serve_stablelm: {by_path['flash_fwd']['serve_stablelm']} flash "
+          f"launches, expected {L} x {SERVE_DENSE['gen_len']} passes")
+    torch.cuda.empty_cache()
+    bd = serve_breakdown(dev, SERVE_DENSE, {"decoder layers": "layers"},
+                         "flash_fwd")
+    check(bd["prefill_launches"] == L and bd["decode_launches"] == L,
+          f"serve_stablelm breakdown: {bd['prefill_launches']} flash "
+          f"launches a prefill, {bd['decode_launches']} a decode step")
+    log_breakdown("serve_stablelm", bd)
+    k4 = kernels["flash_fwd"]
+    log(f"serve_stablelm: from the kernel phase, attention is {L} x "
+        f"{k4['ms']:.4f} ms = {L * k4['ms'] / 1e3:.4f} s of the warm "
+        f"prefill ({L * k4['ms'] / 1e3 / bd['prefill_s']:.1%}) and {L} x "
+        f"{k4['decode']['ms']:.4f} ms = {L * k4['decode']['ms']:.3f} ms of "
+        f"a decode step ({L * k4['decode']['ms'] / 1e3 / bd['decode_step_s']:.1%})")
+    torch.cuda.empty_cache()
+
+    # ------------------------- the card's serve runs against the CPU's
+    serve_vs_cpu(dev, SERVE_VS_CPU)
+    serve_vs_cpu(dev, SERVE_DENSE_VS_CPU)
 
     for name, k in kernels.items():
         k["launches"] = sum(by_path[name].values())

@@ -8,8 +8,11 @@ entry point) and ref.py (plain PyTorch versions, which CPU tensors run);
   engine (repro_torch.sim.sweep).
 * ssm_scan — the chunked SSD scan of the SSM family's sequence mixing
   (mLSTM in xlstm; repro_torch.models.ssm).
+* flash_attention — block online-softmax attention, every attention
+  call of the dense family (stablelm; repro_torch.models.attention).
 """
+from .flash_attention import flash_attention
 from .maxplus_scan import maxplus_depart
 from .ssm_scan import ssm_scan
 
-__all__ = ["maxplus_depart", "ssm_scan"]
+__all__ = ["flash_attention", "maxplus_depart", "ssm_scan"]

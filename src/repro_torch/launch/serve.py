@@ -1,16 +1,16 @@
 """Serving launcher: batched requests through the EdgeKV two-tier page
 pool, on the GPU unless told otherwise.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \\
-        --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
 
 Flow per batch, as in ``repro/launch/serve.py``: shared system prefixes
 register as *global* pages (content-hashed, deduplicated, ring-placed);
 each sequence's own context becomes *local* pages; prefill builds the
-state, then tokens decode step by step.  The page-pool stats show the
-EdgeKV dedup win.  Only the SSM family (xlstm-125m) is ported; the
-reference's default ``stablelm-3b`` raises ``NotImplementedError`` until
-the dense slice.
+KV cache (or the recurrent state), then tokens decode step by step.  The
+page-pool stats show the EdgeKV dedup win.  The dense family (the
+default, stablelm-3b; attention in the ``flash_fwd`` kernel) and the SSM
+family (xlstm-125m; scans in the ``ssd_chunked`` kernel) are ported.
 
 :func:`serve` does the work and returns what it measured; :func:`main`
 prints what the reference prints.
@@ -27,9 +27,15 @@ from repro_torch.configs import get_config, reduced as reduced_config
 from repro_torch.core.hashring import ChordRing
 from repro_torch.device import resolve_device
 from repro_torch.edgecache import PagePoolManager
-from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.kernels.flash_attention import flash_fwd
+from repro_torch.kernels.ssm_scan import ssm_scan_kernel
+from repro_torch.models import (LanguageModel, decode_step, init_params,
+                                prefill)
 from repro_torch.models.model import require_ported
 from repro_torch.obs import walltime
+
+# the kernel wrappers whose launches serve reports, by kernel name
+KERNELS = {"flash_fwd": flash_fwd, "ssd_chunked": ssm_scan_kernel}
 
 
 def _sync(dev: torch.device) -> None:
@@ -40,20 +46,25 @@ def _sync(dev: torch.device) -> None:
 def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
           requests: int = 8, prompt_len: int = 24, gen_len: int = 8,
           shared_prefix_len: int = 16, page_size: int = 8, device=None,
-          seed: int = 0, teacher_tokens: Optional[np.ndarray] = None
-          ) -> Dict[str, Any]:
+          seed: int = 0, teacher_tokens: Optional[np.ndarray] = None,
+          params: Optional[LanguageModel] = None) -> Dict[str, Any]:
     """Serve ``requests`` prompts of ``prompt_len`` tokens (the first
     ``shared_prefix_len`` shared) for ``gen_len`` greedy tokens each.
 
-    Weights and prompts come from ``seed``.  With ``teacher_tokens``
-    ((requests, gen_len) ints) each decode step is fed those tokens
-    instead of its own argmax, so two runs can be compared step by step.
-    The device is the GPU unless ``device`` names another.
+    Weights (drawn on the device) and prompts come from ``seed``; with
+    ``params``, that model (on the device) is served instead, and its
+    config replaces ``arch`` and ``reduced``: two devices draw different
+    weights from one seed, so a comparison hands one run's model to the
+    other.  With ``teacher_tokens`` ((requests, gen_len) ints) each
+    decode step is fed those tokens instead of its own argmax, so two
+    runs can be compared step by step.  The device is the GPU unless
+    ``device`` names another.
 
     Returns tokens (requests, gen_len), the logits each token was chosen
     from (requests, gen_len, vocab), prefill and decode seconds, tokens
-    per second and the page pool's stats.  The kernels' launches are
-    counted on their wrappers (``ssm_scan_kernel.launches``).
+    per second, the page pool's stats, and ``launches``: how far each
+    kernel wrapper's launch count (``flash_fwd.launches``,
+    ``ssm_scan_kernel.launches``) moved in prefill and in decode.
     """
     # float32 throughout, as the reference serves.  On the card the
     # matrix products stay in full float32 only while
@@ -61,11 +72,16 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
     # default): TF32 keeps about three digits, and the card's logits would
     # no longer match the CPU's
     dev = resolve_device(device, "serve")
-    cfg = get_config(arch)
-    if reduced:
-        cfg = reduced_config(cfg)
-    require_ported(cfg)
-    params = init_params(cfg, seed, device=dev)
+    if params is None:
+        cfg = get_config(arch)
+        if reduced:
+            cfg = reduced_config(cfg)
+        require_ported(cfg)
+        params = init_params(cfg, seed, device=dev)
+    elif params.embed.device.type != dev.type:
+        raise ValueError(f"serve: params lie on {params.embed.device}, "
+                         f"not on {dev}")
+    cfg = params.cfg
 
     # EdgeKV control plane: 4 serving groups on a ring; we are g0
     ring = ChordRing(virtual_nodes=8)
@@ -93,10 +109,13 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
               else torch.as_tensor(np.asarray(teacher_tokens),
                                    dtype=torch.int64, device=dev))
     V = cfg.vocab_size
+    counts = [{n: w.launches for n, w in KERNELS.items()}]
     _sync(dev)
     t0 = walltime()
     logits, cache = prefill(params, cfg,
-                            torch.as_tensor(prompts, device=dev).long())
+                            torch.as_tensor(prompts, device=dev).long(),
+                            max_len=prompt_len + gen_len)
+    counts.append({n: w.launches for n, w in KERNELS.items()})
     step_logits = [logits[:, -1, :V].clone()]
     del logits
     tok = (step_logits[0].argmax(-1, keepdim=True) if forced is None
@@ -113,6 +132,7 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
     out = torch.cat(generated, dim=1).cpu().numpy()
     _sync(dev)
     t2 = walltime()
+    counts.append({n: w.launches for n, w in KERNELS.items()})
     s = pool.stats
     return {
         "arch": cfg.name, "device": str(dev), "tokens": out,
@@ -122,6 +142,9 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
         "pool": {"dedup_hits": s["dedup_hits"],
                  "remote_fetches": s["remote_fetch"],
                  "slots_used": pool.used_slots},
+        "launches": {n: {"prefill": counts[1][n] - counts[0][n],
+                         "decode": counts[2][n] - counts[1][n]}
+                     for n in KERNELS},
     }
 
 

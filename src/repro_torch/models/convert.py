@@ -2,9 +2,9 @@
 :class:`~.model.LanguageModel`, and back.
 
 The reference keeps a layer stack that it scans over as one tree with a
-leading layer axis (``mlstm_layers``) and individually placed layers as
-a list (``slstm_layers``); the port keeps one module per layer.  So
-``tree["mlstm_layers"]["mlstm"]["wq"][i]`` is ``mlstm_layers.<i>.mlstm.wq``
+leading layer axis (``layers``, ``mlstm_layers``) and individually placed
+layers as a list (``slstm_layers``); the port keeps one module per
+layer.  So ``tree["layers"]["attn"]["wq"][i]`` is ``layers.<i>.attn.wq``
 and ``tree["slstm_layers"][i]["slstm"]["w_i"]`` is
 ``slstm_layers.<i>.slstm.w_i``.  The leaves are numpy arrays (the tests
 hand the reference's arrays over as numpy).
@@ -16,7 +16,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-STACKED = ("mlstm_layers",)   # one tree, leading layer axis
+STACKED = ("layers", "mlstm_layers")   # one tree, leading layer axis
 LISTED = ("slstm_layers",)    # a list of per-layer trees
 
 

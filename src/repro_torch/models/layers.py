@@ -1,10 +1,12 @@
 """Shared neural building blocks (plain PyTorch, parameters as explicit
 dictionaries of tensors), the counterparts of ``repro/models/layers.py``.
 
-Initial values come from an explicit :class:`torch.Generator`, so a
-model is a function of its seed; they are not the reference's numbers
-(``jax.random`` draws others), so tests load the reference's weights
-through :mod:`.convert` instead.
+Initial values come from an explicit :class:`torch.Generator`, drawn on
+the generator's device, so a model is a function of its seed and its
+device; they are not the reference's numbers (``jax.random`` draws
+others), so tests load the reference's weights through :mod:`.convert`
+instead, and a comparison of two devices hands one device's weights to
+the other.
 """
 from __future__ import annotations
 
@@ -19,10 +21,11 @@ def dense_init(gen: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype = torch.float32,
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated normal at +-2 standard deviations, scaled by ``scale``
-    or 1/sqrt(fan_in), drawn on the CPU from ``gen``."""
+    or 1/sqrt(fan_in), drawn from ``gen`` on its device (a 2.8B-parameter
+    model takes minutes to draw on the CPU, moments on the GPU)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    t = torch.empty(tuple(shape), dtype=torch.float32)
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (std * t).to(dtype)
 
@@ -47,6 +50,30 @@ def apply_norm(kind: str, x: torch.Tensor,
     return rmsnorm(x, gamma) if kind == "rmsnorm" else layernorm(x, gamma)
 
 
+# --------------------------------------------------------------------- RoPE
+def rope_freqs(hd: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., S, H, hd); positions (..., S) integers.  Rotates the two
+    halves of each head against each other (``jnp.split(x, 2)``, not
+    interleaved pairs), angles ``position * freq`` in float32 from the
+    integer positions, and casts back."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions.to(torch.float32)[..., None] * freqs     # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                       # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- MLP
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
              dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     p = {"w_up": dense_init(gen, (d_model, d_ff), dtype),

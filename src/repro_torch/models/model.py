@@ -2,10 +2,12 @@
 
 :func:`init_params` builds a :class:`LanguageModel`, an ``nn.Module``
 whose ``state_dict`` keys follow the reference's parameter tree
-(``embed``, ``final_norm``, ``lm_head``, ``mlstm_layers.<i>.mlstm.wq``,
-...; :mod:`.convert` maps one onto the other).  Only the SSM family
-(xLSTM: a stack of mLSTM layers with sLSTM layers at their configured
-indices) is ported; every other family raises ``NotImplementedError``.
+(``embed``, ``final_norm``, ``lm_head``, ``layers.<i>.attn.wq``,
+``mlstm_layers.<i>.mlstm.wq``, ...; :mod:`.convert` maps one onto the
+other).  Two families are ported: the dense decoder (a stack of
+:class:`DenseBlock`, stablelm-3b) and the SSM family (xLSTM: a stack of
+mLSTM layers with sLSTM layers at their configured indices); every
+other family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ from typing import List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig, SSM
-from .layers import apply_norm, dense_init
+from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, HYBRID, MOE,
+                                      SSM, VLM)
+from .attention import attn_apply, attn_init, decode_attention
+from .layers import apply_norm, dense_init, mlp_apply, mlp_init
 from .ssm import MLSTMBlock, SLSTMBlock
 
 
@@ -27,18 +31,70 @@ class ModelDims:
     hd: int
 
 
+# the ROADMAP.md item (queue 1 item 6) each unported family waits for
+NOT_PORTED = {HYBRID: "the hybrid slice", MOE: "the MoE slice",
+              VLM: "the audio and VLM families",
+              AUDIO: "the audio and VLM families"}
+
+
 def require_ported(cfg: ArchConfig) -> None:
-    if cfg.family != SSM:
+    if cfg.family not in (DENSE, SSM):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"PyTorch yet (ROADMAP.md, queue 1 item 6: the dense serving "
-            f"slice comes next, the hybrid one after it); only the "
-            f"{SSM!r} family (xlstm-125m) is")
+            f"PyTorch yet (ROADMAP.md, queue 1 item 6: "
+            f"{NOT_PORTED.get(cfg.family, 'not planned')}); only the "
+            f"{DENSE!r} (stablelm-3b) and {SSM!r} (xlstm-125m) families are")
+
+
+def model_dims(cfg: ArchConfig) -> ModelDims:
+    """Head counts padded for tensor parallelism at the port's one
+    degree, tp = 1, where they are the config's."""
+    H, K = cfg.padded_heads(1)
+    return ModelDims(H, K, cfg.hd)
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
     """Vocab padded to a multiple of 256, as in the reference."""
     return -(-cfg.vocab_size // 256) * 256
+
+
+class DenseBlock(nn.Module):
+    """One pre-norm decoder layer of the dense family: ``x + attn(ln1
+    x)``, then ``x + MLP(ln2 x)``; the parameters keep the reference's
+    names (``ln1``, ``attn``, ``ln2``, ``mlp``)."""
+
+    def __init__(self, cfg: ArchConfig, dims: ModelDims,
+                 gen: torch.Generator, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        D = cfg.d_model
+        self.cfg, self.dims = cfg, dims
+        self.ln1 = nn.Parameter(torch.ones(D, dtype=dtype))
+        self.attn = nn.ParameterDict(attn_init(gen, D, dims.H, dims.K,
+                                               dims.hd, dtype))
+        self.ln2 = nn.Parameter(torch.ones(D, dtype=dtype))
+        self.mlp = nn.ParameterDict(mlp_init(gen, D, cfg.d_ff,
+                                             cfg.activation, dtype))
+
+    def forward(self, x: torch.Tensor, state: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, dict]:
+        """Prefill (``state`` None): x (B, S, D) -> (x, {"k", "v"}), the
+        layer's post-RoPE K and V (B, S, K, hd).  Decode: x (B, 1, D) with
+        ``state`` {"k", "v"} (B, S_max, K, hd) caches and "len", the
+        valid entries before this token -> (x, {"k", "v"}), the same
+        cache tensors, written in place."""
+        cfg, dims = self.cfg, self.dims
+        hn = apply_norm(cfg.norm, x, self.ln1)
+        kw = dict(n_heads=dims.H, n_kv=dims.K, hd=dims.hd,
+                  rope_theta=cfg.rope_theta, window=cfg.sliding_window)
+        if state is None:
+            y, k, v = attn_apply(dict(self.attn), hn, causal=True, **kw)
+        else:
+            y, k, v = decode_attention(dict(self.attn), hn, state["k"],
+                                       state["v"], state["len"], **kw)
+        x = x + y
+        x = x + mlp_apply(dict(self.mlp), apply_norm(cfg.norm, x, self.ln2),
+                          cfg.activation)
+        return x, {"k": k, "v": v}
 
 
 class LanguageModel(nn.Module):
@@ -54,6 +110,12 @@ class LanguageModel(nn.Module):
         self.final_norm = nn.Parameter(torch.ones(D, dtype=dtype))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(dense_init(gen, (D, V), dtype))
+        if cfg.family == DENSE:
+            dims = model_dims(cfg)
+            self.layers = nn.ModuleList(
+                DenseBlock(cfg, dims, gen, dtype)
+                for _ in range(cfg.n_layers))
+            return
         n_m = cfg.n_layers - len(cfg.slstm_layers)
         self.mlstm_layers = nn.ModuleList(
             MLSTMBlock(cfg, gen, dtype) for _ in range(n_m))
@@ -65,10 +127,12 @@ def init_params(cfg: ArchConfig, seed: int = 0,
                 dtype: torch.dtype = torch.float32,
                 device: Optional[Union[str, torch.device]] = None
                 ) -> LanguageModel:
-    """A model with random weights drawn on the CPU from ``seed``, so
-    every device gets the same numbers; then moved to ``device``."""
-    model = LanguageModel(cfg, torch.Generator().manual_seed(seed), dtype)
-    return model.to(device) if device is not None else model
+    """A model with random weights drawn from ``seed`` on ``device`` (the
+    CPU if None).  Two devices draw different numbers from one seed: to
+    compare them, hand one model's ``state_dict`` to the other."""
+    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    with torch.device(gen.device):      # the constant parameters too
+        return LanguageModel(cfg, gen, dtype)
 
 
 def _slstm_runs(cfg: ArchConfig) -> List[Tuple[int, Optional[int]]]:
@@ -100,7 +164,13 @@ def _logits(params: LanguageModel, cfg: ArchConfig,
 
 
 def dims_from_params(params: LanguageModel, cfg: ArchConfig) -> ModelDims:
-    """Head counts as initialized.  The SSM family has no attention and
+    """Head counts as initialized, from the dense family's ``wq``/``wk``
+    widths (head padding included).  The SSM family has no attention and
     no head padding, so they are the config's."""
     require_ported(cfg)
-    return ModelDims(cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    if cfg.family == SSM:
+        return ModelDims(cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    attn = params.layers[0].attn
+    hd = cfg.hd
+    return ModelDims(attn["wq"].shape[-1] // hd, attn["wk"].shape[-1] // hd,
+                     hd)

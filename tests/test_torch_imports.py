@@ -71,3 +71,5 @@ def test_serve_defaults_to_the_gpu():
         serve("xlstm-125m", reduced=True)
     with pytest.raises(RuntimeError, match="GPU"):
         serve("xlstm-125m", reduced=True, device="cuda")
+    with pytest.raises(RuntimeError, match="GPU"):
+        serve(reduced=True)           # the default, stablelm-3b

@@ -18,9 +18,14 @@ from repro_torch.kernels.maxplus_scan import (maxplus_chunked,
                                               maxplus_depart,
                                               maxplus_depart_ref,
                                               maxplus_seq)
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref,
+                                                 flash_fwd)
 from repro_torch.kernels.ssm_scan import (ssd_chunked_ref, ssd_ref, ssm_scan,
                                           ssm_scan_kernel)
 from repro_torch.launch.serve import serve
+from repro_torch.models import init_params
 from repro_torch.sim.sweep import closed_grid, run_sweep, sweep_grid
 
 pytestmark = pytest.mark.cuda
@@ -170,17 +175,108 @@ def test_ssd_wrapper_counts_and_rejects(cuda_device):
         ssm_scan_kernel(x, loga, dt, Bm, Cm.cpu(), chunk=8)
 
 
+def serve_on_both(arch, cuda_device, **kw):
+    """``arch`` (reduced) served on the card with weights drawn there,
+    then on the CPU with the card's weights, fed the card's tokens."""
+    model = init_params(reduced(get_config(arch)), kw["seed"],
+                        device=cuda_device)
+    gpu = serve(device=cuda_device, params=model, **kw)
+    cpu = serve(device="cpu", params=model.cpu(),
+                teacher_tokens=gpu["tokens"], **kw)
+    assert gpu["pool"] == cpu["pool"]
+    err = np.abs(gpu["logits"] - cpu["logits"]).max()
+    assert err <= 1e-4 * max(1.0, np.abs(cpu["logits"]).max()), err
+    return gpu
+
+
 def test_serve_on_gpu_matches_cpu(cuda_device):
     """reduced xlstm-125m served on the card, then on the CPU fed the
     card's tokens: the same logits (scaled 1e-4), and the prefill went
     through the kernel (numerator + denominator per mLSTM layer)."""
-    kw = dict(reduced=True, requests=3, prompt_len=48, gen_len=4,
-              shared_prefix_len=16, seed=1)
     before = ssm_scan_kernel.launches
-    gpu = serve("xlstm-125m", device=cuda_device, **kw)
+    gpu = serve_on_both("xlstm-125m", cuda_device, requests=3,
+                        prompt_len=48, gen_len=4, shared_prefix_len=16,
+                        seed=1)
     assert ssm_scan_kernel.launches - before == 2 * 2   # 2 mLSTM layers
-    cpu = serve("xlstm-125m", device="cpu", teacher_tokens=gpu["tokens"],
-                **kw)
-    assert gpu["pool"] == cpu["pool"]
-    err = np.abs(gpu["logits"] - cpu["logits"]).max()
-    assert err <= 1e-4 * max(1.0, np.abs(cpu["logits"]).max()), err
+    assert gpu["launches"]["ssd_chunked"] == {"prefill": 4, "decode": 0}
+
+
+def flash_inputs(B, Sq, Skv, H, K, hd, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for shape in ((B, Sq, H, hd), (B, Skv, K, hd), (B, Skv, K, hd))]
+
+
+# (B, Sq, Skv, H, K, hd, causal, window, kv_len): the serve path's head
+# (hd 80), the reference kernel tests' cases (GQA, MQA, ragged 33,
+# windows), hd 128 and a width that ends inside a thread's columns; the
+# one-query (decode) configuration with a true length, and two queries
+# with causal and window masks through it
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,kv_len", [
+    (2, 200, 200, 4, 4, 80, True, 0, None),
+    (2, 64, 64, 4, 2, 64, True, 0, None),
+    (2, 96, 96, 8, 1, 64, True, 0, None),
+    (2, 33, 33, 4, 4, 32, True, 0, None),
+    (2, 128, 128, 2, 2, 16, True, 0, None),
+    (1, 130, 130, 4, 2, 32, True, 8, None),
+    (1, 130, 130, 4, 2, 32, True, 17, None),
+    (1, 130, 130, 4, 2, 32, True, 64, None),
+    (2, 48, 48, 4, 4, 32, False, 0, None),
+    (1, 70, 70, 2, 2, 128, True, 0, None),
+    (1, 70, 90, 3, 3, 72, False, 0, 77),
+    (4, 1, 1056, 8, 8, 80, False, 0, 1025),
+    (2, 1, 300, 4, 2, 16, False, 0, 1),
+    (2, 3, 40, 4, 2, 80, True, 2, None),
+])
+def test_flash_kernel_vs_plain(cuda_device, B, Sq, Skv, H, K, hd, causal,
+                               window, kv_len):
+    q, k, v = flash_inputs(B, Sq, Skv, H, K, hd, Sq * hd + Skv)
+    kw = dict(causal=causal, window=window)
+    want = flash_attention(q, k, v, kv_len=kv_len, **kw)
+    lens = [kv_len] if kv_len is None else [
+        kv_len, torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)]
+    for n in lens:   # a host int, or the decode cache's device int32
+        got = flash_attention(q.to(cuda_device), k.to(cuda_device),
+                              v.to(cuda_device), kv_len=n, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    # and the naive oracle, heads folded
+    G = H // K
+    fold = lambda t, r: t.transpose(1, 2).repeat_interleave(r, 1).reshape(
+        -1, t.shape[1], hd)
+    naive = flash_attention_ref(fold(q, 1), fold(k, G), fold(v, G),
+                                seq_k=kv_len or 0, **kw)
+    torch.testing.assert_close(
+        got.cpu(), naive.reshape(B, H, Sq, hd).transpose(1, 2), rtol=2e-5,
+        atol=2e-5)
+
+
+def test_flash_wrapper_counts_and_rejects(cuda_device):
+    q, k, v = (t.to(cuda_device) for t in flash_inputs(1, 8, 8, 4, 2, 16, 0))
+    before = flash_fwd.launches
+    flash_attention(q, k, v)
+    assert flash_fwd.launches == before + 1
+    with pytest.raises(TypeError):
+        flash_fwd(q.double(), k, v)
+    with pytest.raises(ValueError):
+        flash_fwd(q.transpose(1, 2), k, v)            # not contiguous
+    with pytest.raises(ValueError):
+        flash_fwd(q[:, :, :3], k, v)                  # 3 heads over 2
+    with pytest.raises(ValueError):
+        flash_fwd(q, k, v.cpu())
+    with pytest.raises(ValueError):
+        flash_fwd(q, k, v, kv_len=torch.tensor(3, device=cuda_device))
+    assert flash_fwd.launches == before + 1
+
+
+def test_dense_serve_on_gpu_matches_cpu(cuda_device):
+    """reduced stablelm-3b (4 layers) served on the card and on the CPU:
+    the same logits, every attention call in the kernel, one a layer per
+    prefill and per decode step."""
+    gen = 4
+    gpu = serve_on_both("stablelm-3b", cuda_device, requests=3,
+                        prompt_len=48, gen_len=gen, shared_prefix_len=16,
+                        seed=1)
+    assert gpu["launches"]["flash_fwd"] == {"prefill": 4,
+                                            "decode": 4 * (gen - 1)}
