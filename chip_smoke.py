@@ -9,7 +9,10 @@ it: the max-plus scans at (1000, 8192), the SSD scan at the serve path's
 own scans (mLSTM's numerator and denominator, and a strong decay that
 must stay finite; ``y`` and the final state), flash attention at the
 dense serve path's prefill (causal) and decode (one query over the
-cache's valid prefix) shapes.  Then it drives the port's main paths
+cache's valid prefix) shapes, paged decode attention at stablelm-3b's
+decode and mixtral-8x7b's GQA shape (timed; also against flash attention
+over the same tokens held contiguously), granite-20b's MQA shape and
+pages of 16 and 12 tokens.  Then it drives the port's main paths
 through their entry points.  The batched sweep engine, ``run_sweep``:
 
 * open loop: the 64-point ``sweep_grid()``, checked <= 1e-9 per column
@@ -32,6 +35,13 @@ The LLM serving path, ``repro_torch.launch.serve.serve``:
   weights drawn on the card), the same requests, with the flash kernel's
   launches checked (32 per prefill, 32 per decode step) and the same
   split (layers against the LM head, attention against the products);
+* ``paged_stablelm``: the EdgeKV page pool's data plane at full width:
+  the same stablelm-3b batch through ``prefill`` and 31 decode steps,
+  its pages registered as ``serve`` registers them, each layer's KV
+  cache scattered through the page tables into a 4096-slot pool (the
+  shared prefix stored once), and the paged kernel's 32 launches (one a
+  layer) each held against its plain version and flash attention over
+  the contiguous copy;
 * for each model, the card's serve run against a CPU run handed the
   card's weights, teacher-forced with the card's tokens, logits within
   ``LOGIT_TOL``: xlstm-125m whole at 2 requests x 256 tokens,
@@ -99,6 +109,17 @@ SERVE_VS_CPU = dict(arch="xlstm-125m", requests=2, prompt_len=256,
 SERVE_DENSE_VS_CPU = dict(arch="stablelm-3b", layers=2, requests=2,
                           prompt_len=128, shared_prefix_len=32, gen_len=8,
                           seed=0)
+# the paged kernel alone: 8 sequences of 1025 to 1055 tokens whose first
+# 256 are a shared prefix, in a pool of 4096 slots (serve's); (case, query
+# heads, KV heads, head width, page, timed).  stablelm-3b's decode and
+# mixtral-8x7b's GQA attention are timed; granite-20b's MQA and two other
+# pages are checked
+PAGED_CASES = (("stablelm-3b", 32, 32, 80, 8, True),
+               ("mixtral-8x7b GQA", 32, 8, 128, 8, True),
+               ("granite-20b MQA", 48, 1, 128, 8, False),
+               ("page 16", 32, 8, 128, 16, False),
+               ("page 12", 32, 8, 128, 12, False))
+PAGED_SLOTS, PAGED_SEQ, PAGED_SHARED = 4096, 1056, 256
 
 
 def log(*parts) -> None:
@@ -481,6 +502,246 @@ def flash_kernel_phase(card: dict, dev) -> dict:
         launches=0, **pre, decode=dec)
 
 
+def paged_tables(B: int, page: int, rng) -> tuple:
+    """Seeded page tables and lengths: (B, P_max) int32 slots of a
+    ``PAGED_SLOTS`` pool, the first ``PAGED_SHARED // page`` pages shared
+    by every sequence and the rest each sequence's own, lengths in [1025,
+    1055]; entries of pages past a length hold no pool slot (-1 or N + 5),
+    so a kernel that read one would fault."""
+    import numpy as np
+    P_max = -(-PAGED_SEQ // page)
+    shared = PAGED_SHARED // page
+    own = P_max - shared
+    slots = rng.permutation(PAGED_SLOTS)
+    table = np.empty((B, P_max), np.int32)
+    table[:, :shared] = slots[:shared]
+    table[:, shared:] = slots[shared:shared + B * own].reshape(B, own)
+    lengths = rng.integers(1025, PAGED_SEQ, B).astype(np.int32)
+    for b, n in enumerate(-(-lengths // page)):
+        table[b, n:] = np.where(np.arange(P_max - n) % 2, -1,
+                                PAGED_SLOTS + 5)
+    return table, lengths
+
+
+def paged_work(table, lengths, page: int, H: int, K: int, hd: int) -> tuple:
+    """(bytes, operations) one paged decode needs: the K and V of every
+    unique pool page that a valid position touches (a shared page counted
+    once), q and o, the table and the lengths; two operations a
+    multiply-add for q k and p v over the valid positions."""
+    import numpy as np
+    B = len(lengths)
+    used = np.unique(np.concatenate([table[b, :-(-int(n) // page)]
+                                     for b, n in enumerate(lengths)]))
+    floats = 2 * len(used) * page * hd * K + 2 * B * H * hd
+    return (4 * floats + table.nbytes + lengths.nbytes,
+            4 * int(lengths.sum()) * H * hd)
+
+
+def flash_over_pages(q, k_pages, v_pages, table, lengths):
+    """K4 in decode over the tokens the table names, gathered into a
+    contiguous (B, P_max page, K, hd) cache: one call a sequence (K4
+    takes one valid length, a device int32).  Returns a callable that
+    runs the calls on the gathered copy and gives (B, K, G, hd)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_fwd
+    from repro_torch.kernels.paged_attention.ref import (gather_pages,
+                                                         safe_table)
+    B, K, G, hd = q.shape
+    safe = safe_table(table, lengths, k_pages.shape[2], k_pages.shape[1])
+    kc, vc = (gather_pages(t, safe).transpose(1, 2).contiguous()
+              for t in (k_pages, v_pages))
+    q4 = q.reshape(B, 1, K * G, hd)
+
+    def run():
+        return torch.cat([flash_fwd(q4[b:b + 1], kc[b:b + 1], vc[b:b + 1],
+                                    causal=False, kv_len=lengths[b:b + 1])
+                          for b in range(B)]).reshape(B, K, G, hd)
+    return run
+
+
+def paged_kernel_phase(card: dict, dev) -> dict:
+    """The paged kernel over ``PAGED_CASES``, 8 sequences each: against
+    its plain page-by-page version and the gather oracle, and against K4
+    over the same tokens gathered contiguously, all within ``FLASH_TOL``
+    scaled; the timed cases beside their byte bound, the plain version
+    and K4 over the contiguous copy (no torch call reads through a page
+    table, so there is no library time)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_fwd
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_online_ref, paged_attention_ref, paged_decode)
+
+    B = 8
+    out = {}
+    for case, H, K, hd, page, timed in PAGED_CASES:
+        rng = np.random.default_rng(17 + hd + page)
+        table, lengths = paged_tables(B, page, rng)
+        gen = torch.Generator(dev).manual_seed(hd + page)
+        q = torch.randn((B, K, H // K, hd), generator=gen, device=dev)
+        kp, vp = (torch.randn((K, PAGED_SLOTS, page, hd), generator=gen,
+                              device=dev) for _ in range(2))
+        pt = torch.from_numpy(table).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        run = lambda: paged_decode(q, kp, vp, pt, ln)
+        got = run()
+        check(bool(torch.isfinite(got).all()), f"paged {case}: not finite")
+        flash_before = flash_fwd.launches
+        k4 = flash_over_pages(q, kp, vp, pt, ln)
+        errs = {}
+        for what, want in (
+                ("plain", paged_attention_online_ref(q, kp, vp, pt, ln)),
+                ("oracle", paged_attention_ref(q, kp, vp, pt, ln)),
+                ("K4 contiguous", k4())):
+            err = float((got - want).abs().max())
+            bound = FLASH_TOL * max(1.0, float(want.abs().max()))
+            check(err <= bound, f"paged {case}: max_abs_err vs {what} {err} "
+                  f"> {bound}")
+            errs[what] = err
+        line = (f"paged_decode {case} (B {B}, H {H}, K {K}, hd {hd}, page "
+                f"{page}, P_max {table.shape[1]}, lengths {lengths.min()}.."
+                f"{lengths.max()}, {PAGED_SHARED // page} shared pages): "
+                f"max_abs_err vs plain {errs['plain']:.3e}, vs oracle "
+                f"{errs['oracle']:.3e}, vs K4 contiguous "
+                f"{errs['K4 contiguous']:.3e} (tol {FLASH_TOL} x max(1, "
+                f"|plain|))")
+        if timed:
+            nbytes, ops = paged_work(table, lengths, page, H, K, hd)
+            b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
+            ms = time_ms(run)
+            plain_ms = time_ms(lambda: paged_attention_online_ref(
+                q, kp, vp, pt, ln), reps=1, windows=3)
+            k4_ms = time_ms(k4)
+            line += (f"; {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+                     f"{nbytes / 1e6:.1f} MB of unique pages, "
+                     f"{ops / 1e9:.3f} GFLOP; {nbytes / ms / 1e9:.3f} TB/s "
+                     f"achieved), plain {plain_ms:.3f} ms, K4 over the "
+                     f"contiguous copy ({B} calls) {k4_ms:.4f} ms, library "
+                     f"- (no torch call reads through a page table)")
+            out[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=errs["plain"],
+                             k4_contiguous_ms=k4_ms)
+        flash_fwd.launches = flash_before   # comparisons are not the path's
+        log(line)
+        del q, kp, vp, k4
+        torch.cuda.empty_cache()
+    sl, gqa = out["stablelm-3b"], out["mixtral-8x7b GQA"]
+    return dict(
+        name="paged_decode", route="cuda",
+        source="src/repro_torch/kernels/paged_attention/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/paged_attention/kernel.py:70",
+        launches=0, library_ms=None, **sl, gqa=gqa)
+
+
+def paged_stablelm(dev, spec: dict) -> dict:
+    """The EdgeKV page pool's data plane at full width: stablelm-3b (seed
+    0, drawn on the card) serves ``spec``'s batch through the public
+    ``prefill`` and ``decode_step`` as ``serve`` does; the pool registers
+    its pages as ``serve`` does (``page_requests``); each layer's KV
+    cache is scattered through those tables into (K, 4096, page, hd)
+    pools, the shared prefix's pages from request 0 alone, and the paged
+    kernel decodes numpy-seeded queries over it with ragged lengths: one
+    launch a layer, each held against the plain version and K4 over the
+    contiguous copy gathered through the same tables."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_fwd
+    from repro_torch.kernels.paged_attention import (
+        paged_attention, paged_attention_online_ref)
+    from repro_torch.launch.serve import page_requests
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_config(spec["arch"])
+    B, S, G = spec["requests"], spec["prompt_len"], spec["gen_len"]
+    page = 8                                    # serve's default
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, spec["seed"], device=dev)
+    prompts, pool = page_requests(
+        cfg.vocab_size, requests=B, prompt_len=S, gen_len=G,
+        shared_prefix_len=spec["shared_prefix_len"], page_size=page,
+        seed=spec["seed"])
+    logits, cache = prefill(params, cfg,
+                            torch.as_tensor(prompts, device=dev).long(),
+                            max_len=S + G)
+    tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True)
+    del logits
+    for _ in range(G - 1):
+        lg, cache = decode_step(params, cfg, cache, tok)
+        tok = lg[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    del params, lg
+    torch.cuda.empty_cache()
+    L, _, S_max, K, hd = cache["k"].shape
+    H = cfg.n_heads
+    n_valid = int(cache["len"])
+    P_max = S_max // page
+    shared = spec["shared_prefix_len"] // page
+    table = np.stack([pool.page_table(f"req{i}", P_max) for i in range(B)])
+    check(np.all(table[:, :shared] == table[0, :shared])
+          and len(np.unique(table[:, shared:])) == B * (P_max - shared)
+          and pool.used_slots == shared + B * (P_max - shared),
+          f"paged_stablelm: pool tables {pool.stats}")
+    # every (request, page) written once: the shared pages from request 0
+    bs, js = np.nonzero((np.arange(B)[:, None] == 0)
+                        | (np.arange(P_max)[None, :] >= shared))
+    src_b, src_j = (torch.from_numpy(a).to(dev) for a in (bs, js))
+    dst = torch.from_numpy(table[bs, js].astype(np.int64)).to(dev)
+    pools = {n: torch.zeros((K, PAGED_SLOTS, page, hd), device=dev)
+             for n in ("k", "v")}
+    rng = np.random.default_rng(16)
+    lengths = rng.integers(S + 1, n_valid + 1, B).astype(np.int32)
+    pt = torch.from_numpy(table).to(dev)
+    ln = torch.from_numpy(lengths).to(dev)
+    prefix = spec["shared_prefix_len"]
+    prefix_diff = max(float((cache[n][:, :, :prefix]
+                             - cache[n][:, :1, :prefix]).abs().max())
+                      for n in ("k", "v"))
+    errs = {"plain": 0.0, "K4 contiguous": 0.0}
+    scale = 0.0
+    for layer in range(L):
+        for n, pl in pools.items():
+            # (B, S_max, K, hd) -> (K, B, P_max, page, hd), into the pool
+            c = cache[n][layer].reshape(B, P_max, page, K, hd).permute(
+                3, 0, 1, 2, 4)
+            pl[:, dst] = c[:, src_b, src_j]
+        q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(
+            np.float32)).to(dev)
+        got = paged_attention(q, pools["k"], pools["v"], pt, ln)
+        check(bool(torch.isfinite(got).all()),
+              f"paged_stablelm layer {layer}: not finite")
+        qg = q.reshape(B, K, H // K, hd)
+        flash_before = flash_fwd.launches
+        for what, want in (
+                ("plain", paged_attention_online_ref(
+                    qg, pools["k"], pools["v"], pt, ln).reshape(B, H, hd)),
+                ("K4 contiguous", flash_over_pages(
+                    qg, pools["k"], pools["v"], pt, ln)().reshape(B, H, hd))):
+            err = float((got - want).abs().max())
+            bound = FLASH_TOL * max(1.0, float(want.abs().max()))
+            check(err <= bound, f"paged_stablelm layer {layer}: max_abs_err "
+                  f"vs {what} {err} > {bound}")
+            errs[what] = max(errs[what], err)
+            scale = max(scale, float(want.abs().max()))
+        flash_fwd.launches = flash_before   # comparisons are not the path's
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"paged_stablelm: {cfg.name} at full width ({L} layers, {H} heads "
+        f"of {hd}), {B} requests x {S} prompt tokens (shared prefix "
+        f"{prefix}) + {G - 1} decode steps in {served_s:.3f} s (weights "
+        f"drawn, prefill, decode); cache {tuple(cache['k'].shape)} with "
+        f"{n_valid} valid tokens; pool {pool.used_slots} of {PAGED_SLOTS} "
+        f"slots ({shared} shared prefix pages stored once, "
+        f"{pool.stats['dedup_hits']} dedup hits); the shared prefix's K/V "
+        f"in the {B} requests' own cache rows differ by at most "
+        f"{prefix_diff:.3e}; {L} paged launches over lengths "
+        f"{lengths.min()}..{lengths.max()}: max_abs_err vs plain "
+        f"{errs['plain']:.3e}, vs K4 over the contiguous copy "
+        f"{errs['K4 contiguous']:.3e} (tol {FLASH_TOL} x max(1, |want|), "
+        f"|want| up to {scale:.3f}); peak device memory {peak:.3f} GiB")
+    return dict(peak_gib=peak, errs=errs, prefix_diff=prefix_diff)
+
+
 # kernel name fragment -> the kind the time splits report it under
 KERNEL_KINDS = (("flash_", "flash_fwd"), ("ssd_chunked", "ssd_chunked"),
                 ("gemm", "products"), ("xmma", "products"))
@@ -712,6 +973,7 @@ def main() -> int:
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import flash_fwd
     from repro_torch.kernels.maxplus_scan import kernel as mp_kernel
+    from repro_torch.kernels.paged_attention import paged_decode
     from repro_torch.kernels.ssm_scan import ssm_scan_kernel
     from repro_torch.sim.cluster import ServiceParams
     from repro_torch.sim.sweep import SweepPoint, run_sweep, sweep_grid
@@ -740,9 +1002,11 @@ def main() -> int:
     kernels = kernel_phase(card, dev)
     kernels["ssd_chunked"] = ssd_kernel_phase(card, dev)
     kernels["flash_fwd"] = flash_kernel_phase(card, dev)
+    kernels["paged_decode"] = paged_kernel_phase(card, dev)
     wrappers = {"maxplus_chunked": mp_kernel.maxplus_chunked,
                 "maxplus_seq": mp_kernel.maxplus_seq,
-                "ssd_chunked": ssm_scan_kernel, "flash_fwd": flash_fwd}
+                "ssd_chunked": ssm_scan_kernel, "flash_fwd": flash_fwd,
+                "paged_decode": paged_decode}
     by_path: dict = {name: {} for name in wrappers}
 
     def drive(path: str, needs: str, fn):
@@ -887,6 +1151,19 @@ def main() -> int:
         f"prefill ({L * k4['ms'] / 1e3 / bd['prefill_s']:.1%}) and {L} x "
         f"{k4['decode']['ms']:.4f} ms = {L * k4['decode']['ms']:.3f} ms of "
         f"a decode step ({L * k4['decode']['ms'] / 1e3 / bd['decode_step_s']:.1%})")
+    torch.cuda.empty_cache()
+
+    # ------------------------ the page pool's data plane, full width
+    drive("paged_stablelm", "paged_decode",
+          lambda: paged_stablelm(dev, SERVE_DENSE))
+    check(by_path["paged_decode"]["paged_stablelm"] == L,
+          f"paged_stablelm: {by_path['paged_decode']['paged_stablelm']} "
+          f"paged launches, expected {L}")
+    k5 = kernels["paged_decode"]
+    log(f"paged_stablelm: from the kernel phase, {L} x {k5['ms']:.4f} ms = "
+        f"{L * k5['ms']:.3f} ms of paged attention a decode step, against "
+        f"{L} x {k4['decode']['ms']:.4f} ms = {L * k4['decode']['ms']:.3f} "
+        f"ms of K4 over the serve path's contiguous cache")
     torch.cuda.empty_cache()
 
     # ------------------------- the card's serve runs against the CPU's

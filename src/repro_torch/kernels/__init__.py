@@ -10,9 +10,14 @@ entry point) and ref.py (plain PyTorch versions, which CPU tensors run);
   (mLSTM in xlstm; repro_torch.models.ssm).
 * flash_attention — block online-softmax attention, every attention
   call of the dense family (stablelm; repro_torch.models.attention).
+* paged_attention — one-token decode attention over the EdgeKV page
+  pool (repro_torch.edgecache) through int32 page tables, online softmax
+  across the pages.
 """
 from .flash_attention import flash_attention
 from .maxplus_scan import maxplus_depart
+from .paged_attention import paged_attention
 from .ssm_scan import ssm_scan
 
-__all__ = ["flash_attention", "maxplus_depart", "ssm_scan"]
+__all__ = ["flash_attention", "maxplus_depart", "paged_attention",
+           "ssm_scan"]

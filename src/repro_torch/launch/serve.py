@@ -18,7 +18,7 @@ prints what the reference prints.
 from __future__ import annotations
 
 import argparse
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,38 @@ KERNELS = {"flash_fwd": flash_fwd, "ssd_chunked": ssm_scan_kernel}
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def page_requests(vocab_size: int, *, requests: int, prompt_len: int,
+                  gen_len: int, shared_prefix_len: int, page_size: int,
+                  seed: int) -> Tuple[np.ndarray, PagePoolManager]:
+    """The batch :func:`serve` runs: ``requests`` prompts (requests,
+    prompt_len) int32 from ``seed``, the first ``shared_prefix_len``
+    tokens shared, and the EdgeKV page pool (4096 slots of ``page_size``
+    tokens, we are group g0 of 4 on the ring) with each request's pages
+    registered: the shared prefix as deduplicated global pages, the rest
+    of the prompt and the generated tokens as local pages, in token
+    order (``pool.page_table(f"req{i}", ...)``)."""
+    ring = ChordRing(virtual_nodes=8)
+    for g in range(4):
+        ring.add_node(f"g{g}")
+    pool = PagePoolManager("g0", 4096, page_size, ring)
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, vocab_size, shared_prefix_len, dtype=np.int32)
+    prompts = np.concatenate(
+        [np.tile(shared, (requests, 1)),
+         rng.integers(1, vocab_size, (requests,
+                                      prompt_len - shared_prefix_len),
+                      dtype=np.int32)], axis=1)
+
+    # control plane: register pages (dedup happens here)
+    n_local = (prompt_len - shared_prefix_len + gen_len + page_size
+               - 1) // page_size
+    for i in range(requests):
+        pool.register_global(f"req{i}", shared)
+        pool.alloc_local(f"req{i}", n_local)
+    return prompts, pool
 
 
 def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
@@ -82,28 +114,11 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
         raise ValueError(f"serve: params lie on {params.embed.device}, "
                          f"not on {dev}")
     cfg = params.cfg
-
-    # EdgeKV control plane: 4 serving groups on a ring; we are g0
-    ring = ChordRing(virtual_nodes=8)
-    for g in range(4):
-        ring.add_node(f"g{g}")
-    pool = PagePoolManager("g0", 4096, page_size, ring)
-
-    rng = np.random.default_rng(seed)
-    shared = rng.integers(1, cfg.vocab_size, shared_prefix_len,
-                          dtype=np.int32)
+    prompts, pool = page_requests(
+        cfg.vocab_size, requests=requests, prompt_len=prompt_len,
+        gen_len=gen_len, shared_prefix_len=shared_prefix_len,
+        page_size=page_size, seed=seed)
     B = requests
-    prompts = np.concatenate(
-        [np.tile(shared, (B, 1)),
-         rng.integers(1, cfg.vocab_size, (B, prompt_len - shared_prefix_len),
-                      dtype=np.int32)], axis=1)
-
-    # control plane: register pages (dedup happens here)
-    for i in range(B):
-        pool.register_global(f"req{i}", shared)
-        n_local = (prompt_len - shared_prefix_len + gen_len + page_size
-                   - 1) // page_size
-        pool.alloc_local(f"req{i}", n_local)
 
     forced = (None if teacher_tokens is None
               else torch.as_tensor(np.asarray(teacher_tokens),

@@ -79,9 +79,10 @@ def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     x (B, 1, D); caches (B, S_max, K, hd); ``cur_len``: 0-d int32 tensor,
     the valid entries *before* this token.  The new entry goes to slot
     ``cur_len`` (``cur_len % S_max`` under a sliding window: a ring
-    buffer).  **The caches are updated in place** (the reference returns
-    new arrays): the step writes one slot of a cache that is gigabytes
-    at full width.  Returns (out (B, 1, D), k_cache, v_cache), the caches
+    buffer; the last slot once a cache without a window is full, and
+    the token still attends over ``S_max`` entries).  **The caches are
+    updated in place** (the reference returns new arrays): the step
+    writes one slot of a cache that is gigabytes at full width.  Returns (out (B, 1, D), k_cache, v_cache), the caches
     being the same tensors that were passed in.
     """
     if kv_scales is not None:
@@ -96,7 +97,11 @@ def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     pos = cur_len.reshape(1, 1).expand(B, 1)
     q = apply_rope(q, pos, rope_theta)
     k = apply_rope(k, pos, rope_theta)
-    slot = (cur_len % S_max if window else cur_len).reshape(1).long()
+    # a full cache without a window overwrites its last slot, as the
+    # reference's dynamic_update_slice clamps its start: index_copy_ would
+    # raise (a device assert on CUDA) at slot S_max
+    slot = (cur_len % S_max if window
+            else torch.clamp(cur_len, max=S_max - 1)).reshape(1).long()
     k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
     v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
     out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),

@@ -187,7 +187,10 @@ def test_attn_apply_matches_jax(H, K, window):
     scaled_close(v, (x @ p["wv"]).reshape(2, S, K, hd))
 
 
-@pytest.mark.parametrize("window,cur", [(0, 5), (0, 0), (8, 11)])
+# cur 12 and 14: a full cache of 12 slots, whose last slot the reference
+# overwrites (dynamic_update_slice clamps its start)
+@pytest.mark.parametrize("window,cur", [(0, 5), (0, 0), (8, 11), (0, 12),
+                                        (0, 14)])
 def test_decode_attention_matches_jax(window, cur):
     """One token into a cache of 12 slots (a ring of 8 under a window):
     the written slot, the output, and the cache updated in place."""

@@ -22,9 +22,14 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref,
                                                  flash_fwd)
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_online_ref,
+                                                 paged_attention_ref,
+                                                 paged_decode)
 from repro_torch.kernels.ssm_scan import (ssd_chunked_ref, ssd_ref, ssm_scan,
                                           ssm_scan_kernel)
 from repro_torch.launch.serve import serve
+from repro_torch.models import attention as tattn
 from repro_torch.models import init_params
 from repro_torch.sim.sweep import closed_grid, run_sweep, sweep_grid
 
@@ -280,3 +285,112 @@ def test_dense_serve_on_gpu_matches_cpu(cuda_device):
                         seed=1)
     assert gpu["launches"]["flash_fwd"] == {"prefill": 4,
                                             "decode": 4 * (gen - 1)}
+
+
+def paged_inputs(B, K, G, hd, N, page, P_max, lengths, seed):
+    """Normal q and pools, a table of random slots (entries past each
+    length included), int32 lengths; on the CPU."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32))
+    table = torch.from_numpy(rng.integers(0, N, (B, P_max)).astype(np.int32))
+    return (f32(B, K, G, hd), f32(K, N, page, hd), f32(K, N, page, hd),
+            table, torch.tensor(lengths, dtype=torch.int32))
+
+
+# (B, K, G, hd, N, page, P_max, lengths): stablelm-3b's heads (G 1, hd
+# 80; at B 3 and B 8), mixtral's GQA (G 4, hd 128), granite's MQA (K 1,
+# G 48: six blocks of query heads), pages of 16, 12, 5, 3 and 1 tokens, a
+# head that is no multiple of 4 (scalar staging), a length past the
+# table's capacity
+@pytest.mark.parametrize("B,K,G,hd,N,page,P_max,lengths", [
+    (3, 4, 1, 80, 64, 8, 20, [1, 157, 160]),
+    (8, 32, 1, 80, 64, 8, 4, [1, 9, 17, 25, 32, 31, 30, 2]),
+    (2, 2, 4, 128, 64, 8, 20, [33, 150]),
+    (2, 1, 48, 128, 32, 8, 12, [96, 41]),
+    (3, 2, 2, 64, 32, 16, 6, [16, 17, 90]),
+    (2, 2, 4, 128, 40, 12, 9, [100, 13]),
+    (2, 2, 3, 72, 40, 5, 9, [45, 7]),
+    (2, 3, 8, 16, 16, 3, 7, [20, 21]),
+    (2, 2, 2, 32, 64, 1, 40, [40, 9]),
+    (2, 2, 2, 30, 16, 8, 5, [39, 2]),
+    (2, 2, 1, 16, 16, 8, 3, [100, 24]),
+])
+def test_paged_kernel_vs_plain(cuda_device, B, K, G, hd, N, page, P_max,
+                               lengths):
+    args = paged_inputs(B, K, G, hd, N, page, P_max, lengths, B * hd + page)
+    got = paged_decode(*(t.to(cuda_device) for t in args))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for plain in (paged_attention_online_ref, paged_attention_ref):
+        torch.testing.assert_close(got.cpu(), plain(*args), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_paged_kernel_never_reads_entries_past_the_length(cuda_device):
+    """Entries past ceil(length / page) hold in-range garbage, then no
+    pool slot at all (-1, N + 5): the same output, bit for bit, and no
+    fault; a sequence of length 0 gives zeros."""
+    N = 16
+    q, kp, vp, table, lengths = paged_inputs(3, 2, 4, 80, N, 8, 6,
+                                             [11, 0, 48], 9)
+    far = table.clone()
+    far[0, 2:] = torch.tensor([-1, N + 5, -1, N + 5])
+    far[1, :] = N + 5
+    outs = []
+    for t in (table, far):
+        outs.append(paged_decode(*(a.to(cuda_device) for a in (
+            q, kp, vp, t, lengths))))
+        torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.isfinite(outs[1]).all() and not outs[1][1].any()
+    torch.testing.assert_close(outs[1].cpu(),
+                               paged_attention_online_ref(q, kp, vp, far,
+                                                          lengths),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_paged_wrapper_counts_and_rejects(cuda_device):
+    q, kp, vp, table, lengths = (t.to(cuda_device) for t in paged_inputs(
+        2, 2, 2, 16, 8, 8, 3, [5, 20], 0))
+    before = paged_decode.launches
+    got = paged_attention(q.reshape(2, 4, 16), kp, vp, table.long(),
+                          lengths.long())
+    assert paged_decode.launches == before + 1 and got.shape == (2, 4, 16)
+    with pytest.raises(ValueError):
+        paged_decode(q.cpu(), kp.cpu(), vp.cpu(), table.cpu(), lengths.cpu())
+    with pytest.raises(TypeError):
+        paged_decode(q.double(), kp.double(), vp.double(), table, lengths)
+    with pytest.raises(TypeError):
+        paged_decode(q, kp, vp, table.long(), lengths)
+    with pytest.raises(TypeError):
+        paged_decode(q, kp, vp, table, lengths.long())
+    with pytest.raises(ValueError):
+        paged_decode(q, kp[:, :, :, ::2], vp[:, :, :, ::2], table, lengths)
+    with pytest.raises(ValueError):
+        paged_decode(q, kp, vp, table, lengths.cpu())
+    assert paged_decode.launches == before + 1
+
+
+@pytest.mark.parametrize("cur", [12, 14])
+def test_decode_attention_full_cache_on_gpu_matches_cpu(cuda_device, cur):
+    """Decoding into a full cache of 12 slots overwrites the last slot on
+    the card as on the CPU, with no device assert."""
+    rng = np.random.default_rng(cur)
+    D, H, K, hd, S_max = 32, 4, 2, 16, 12
+    p = {n: torch.from_numpy((rng.standard_normal(shape) / np.sqrt(
+        shape[0])).astype(np.float32)) for n, shape in (
+        ("wq", (D, H * hd)), ("wk", (D, K * hd)), ("wv", (D, K * hd)),
+        ("wo", (H * hd, D)))}
+    x = torch.from_numpy(rng.standard_normal((2, 1, D)).astype(np.float32))
+    kc, vc = (torch.from_numpy(rng.standard_normal(
+        (2, S_max, K, hd)).astype(np.float32)) for _ in range(2))
+    kw = dict(n_heads=H, n_kv=K, hd=hd, rope_theta=1e4)
+    cur_len = torch.tensor(cur, dtype=torch.int32)
+    gpu = tattn.decode_attention(
+        {n: a.to(cuda_device) for n, a in p.items()}, x.to(cuda_device),
+        kc.to(cuda_device), vc.to(cuda_device), cur_len.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    cpu = tattn.decode_attention(p, x, kc.clone(), vc.clone(), cur_len, **kw)
+    for g, c in zip(gpu, cpu):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
