@@ -68,10 +68,13 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # Published peaks (NVIDIA data sheets, dense, no sparsity).  Device memory
-# bytes/s; float64 and float32 operations/s outside the tensor cores.
+# bytes/s; float64 and float32 operations/s outside the tensor cores; TF32
+# operations/s on the tensor cores (logged beside K4's bound, not used in
+# it).
 PEAKS = {
-    "H100 PCIe": dict(bytes=2.0e12, float64=25.6e12, float32=51.2e12),
-    "H100": dict(bytes=3.35e12, float64=34e12, float32=67e12),
+    "H100 PCIe": dict(bytes=2.0e12, float64=25.6e12, float32=51.2e12,
+                      tf32=378e12),
+    "H100": dict(bytes=3.35e12, float64=34e12, float32=67e12, tf32=495e12),
 }
 # committed BENCH_sweep.json rows of the closed-loop paths -> the sweep
 # column (and its scale) that reproduces each; walltime rows are host
@@ -120,6 +123,9 @@ PAGED_CASES = (("stablelm-3b", 32, 32, 80, 8, True),
                ("page 16", 32, 8, 128, 16, False),
                ("page 12", 32, 8, 128, 12, False))
 PAGED_SLOTS, PAGED_SEQ, PAGED_SHARED = 4096, 1056, 256
+# head widths at which the flash phase also times the prefill, beside
+# stablelm-3b's 80
+FLASH_WIDTHS = (72, 128)
 
 
 def log(*parts) -> None:
@@ -310,6 +316,17 @@ def kernel_phase(card: dict, dev) -> dict:
                 f"({b_by}; {nbytes / ms / 1e9:.3f} TB/s achieved), plain "
                 f"{plain_ms:.3f} ms, library "
                 f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+            if name == "maxplus_seq":
+                # one row alone: its time over L is the dependent chain's
+                # cost a step, with no other row's bytes in the way
+                a1, s1 = a[:1].contiguous(), s[:1].contiguous()
+                check(torch.equal(wrapper(a1, s1), plain_fn(a1, s1)),
+                      f"{name} {tag} one row: not bitwise equal")
+                one_ms = time_ms(lambda: wrapper(a1, s1))
+                log(f"{name} {tag} one row (1, {L}): {one_ms:.4f} ms, "
+                    f"{one_ms * 1e6 / L:.3f} ns a chain step; the chain of "
+                    f"{L} steps is {one_ms / ms:.1%} of the (1000, {L}) "
+                    f"launch, the bytes' bound {b_ms / ms:.1%}")
             if tag == "float64":
                 kernels[name] = dict(
                     name=name, route="cuda",
@@ -446,7 +463,7 @@ def flash_kernel_phase(card: dict, dev) -> dict:
         return torch.randn(shape, generator=gen, device=dev)
 
     def fold(t):                     # (B, S, H, hd) -> (B * H, S, hd)
-        return t.transpose(1, 2).reshape(B * H, t.shape[1], hd)
+        return t.transpose(1, 2).reshape(B * H, t.shape[1], t.shape[-1])
 
     q, k, v = randn(B, S, H, hd), randn(B, S, H, hd), randn(B, S, H, hd)
     q1, kc, vc = randn(B, 1, H, hd), randn(B, S_max, H, hd), randn(
@@ -483,17 +500,46 @@ def flash_kernel_phase(card: dict, dev) -> dict:
         kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (b, c))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
+        # the tile configuration's products run in 3xTF32: three TF32
+        # passes of the same operations on the tensor cores
+        tc_ms = 3 * ops / card["tf32"] * 1e3
         log(f"flash_fwd {case} (B {B}, Sq {a.shape[1]}, Skv {b.shape[1]}, "
             f"H {H}, hd {hd}): max_abs_err vs plain {errs['plain']:.3e}, "
             f"vs naive {errs['naive']:.3e} (tol {FLASH_TOL} x max(1, "
             f"|plain|)); {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
             f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
             f"{ops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s "
-            f"achieved), plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms "
-            f"(scaled_dot_product_attention, float32)")
+            f"achieved), 3xTF32 on the tensor cores {tc_ms:.4f} ms "
+            f"(3 x ops at {card['tf32'] / 1e12:.0f} TFLOP/s), plain "
+            f"{plain_ms:.3f} ms, library {lib_ms:.4f} ms "
+            f"(scaled_dot_product_attention, float32); kernel / library "
+            f"{ms / lib_ms:.3f}")
         out[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, max_abs_err=errs["plain"],
                          library_ms=lib_ms)
+    # the prefill at other head widths, outside the main path: 72 is
+    # zero-filled to the 80-wide instance, 128 takes 64 queries a CTA
+    for w in FLASH_WIDTHS:
+        qw, kw, vw = randn(B, S, H, w), randn(B, S, H, w), randn(B, S, H, w)
+        got = fold(flash_fwd(qw, kw, vw, causal=True))
+        want = flash_attention_chunked_ref(fold(qw), fold(kw), fold(vw),
+                                           causal=True)
+        err = float((got - want).abs().max())
+        bound = FLASH_TOL * max(1.0, float(want.abs().max()))
+        check(err <= bound, f"flash prefill hd {w}: max_abs_err {err} > "
+              f"{bound}")
+        del got, want
+        nbytes, ops = flash_work(B, S, H, H, w, S, True)
+        b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
+        ms = time_ms(lambda: flash_fwd(qw, kw, vw, causal=True))
+        qt, kt, vt = (t.transpose(1, 2) for t in (qw, kw, vw))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        log(f"flash_fwd prefill at hd {w} (B {B}, S {S}, H {H}): "
+            f"max_abs_err vs plain {err:.3e}; {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), 3xTF32 on the tensor cores "
+            f"{3 * ops / card['tf32'] * 1e3:.4f} ms, library {lib_ms:.4f} "
+            f"ms; kernel / library {ms / lib_ms:.3f}")
     pre, dec = out["prefill"], out[f"decode kv_len {S + 1}"]
     return dict(
         name="flash_fwd", route="cuda",

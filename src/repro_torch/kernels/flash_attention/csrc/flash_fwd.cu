@@ -22,33 +22,67 @@
 // Design.  The TPU kernel runs the grid (row, query block, KV block) in
 // order on one core and carries (m, l, acc) in VMEM across the KV axis.
 // Here CTAs run in no order, so each CTA owns its rows' carry and walks the
-// KV tiles itself.  One entry point, two launch configurations of 256
-// threads, chosen by the number of queries:
-//   * tile (Sq > 4, prefill): one CTA per (row, tile of 64 queries), the
-//     heaviest causal tiles launched first.  Q (transposed), K
-//     (transposed), V and P tiles of 64 keys in shared memory (81 KB at
-//     hd = 80, two CTAs an SM).  The threads form a 16 x 16 grid; thread
-//     (ty, tx) computes the scores of rows 4 ty..4 ty+3 against keys
-//     4 tx..4 tx+3 (two float4 loads, 16 FMAs per step of the head), keeps
-//     m and l of its four rows in registers (row max and sum are reduced
-//     over the 16 threads of a row by shuffles), and accumulates the
-//     output of its four rows at columns tx + 16 j.
+// KV tiles itself.  One entry point, two launch configurations, chosen by
+// the number of queries:
+//   * tile (Sq > 4, prefill): one CTA per (row, tile of BQ queries), the
+//     heaviest causal tiles launched first.  Both products run on the
+//     tensor cores in 3xTF32 (below), with mma.sync.m16n8k8.  Each warp
+//     owns 16 query rows, one m16 tile: the scores of a tile of 64 keys
+//     stay in its mma accumulators (32 floats a thread), the online
+//     softmax runs on those fragments (row max and sum reduced over the
+//     four lanes of a quad; a tile none of whose scores the warp's rows
+//     may miss skips the masks), and P passes to the P v product's A
+//     operand in registers.  For tf32 m16n8k8 a thread's accumulator
+//     holds the columns (2t, 2t+1) of its rows while its A fragment holds
+//     (t, t+4), so the P v product takes the 8 keys of each k step in the
+//     order (0, 2, 4, 6, 1, 3, 5, 7), on P's side and on V's B fragment
+//     alike (a sum over keys in any order is the same sum).  The head is
+//     zero-filled to HDP, a multiple of 8.  Q, K and V are staged by
+//     cp.async (16 bytes a thread where hd % 4 == 0 and the pointers
+//     allow, 4 otherwise) into raw buffers, and split once into TF32 hi
+//     and lo planes: Q once per CTA, K and V once per tile, each in the
+//     layout its fragments read with one load and no register moves (see
+//     Tile); V passes through K's split buffer after the scores, and the
+//     next tile's K is in flight beside the scores, its V beside p v.  BQ
+//     = 128 (8 warps) up to hd = 104 (165 KB of shared memory at hd = 80,
+//     one CTA an SM), 64 above.  A warp whose rows see no key of a tile
+//     skips its products, exactly as if every score were masked.
+//     mma.sync, not wgmma: wgmma takes its B operand from shared memory
+//     K-major in a swizzled layout, from 4-warp groups.  The split passes
+//     here already write exact TF32 planes, K head-contiguous and V
+//     transposed, so writing them swizzled is the next step; this first
+//     tensor-core design keeps to one warp per 16 rows.
 //   * rows (Sq <= 4, decode): one CTA per (row, query), so a one-token
 //     decode does not pad its query to a 64-row tile at 64x the work.  Each
 //     of the 8 warps walks every 8th group of 8 keys; a lane holds head
 //     dims lane + 32 j of q and of acc, the score is a warp sum, and the
 //     warps' (m, l, acc) are merged through shared memory at the end.
+//     Float32 FMAs on the CUDA cores.
 // Both take the same key range [lo, hi) from the masks, so KV tiles no
 // query can reach are never loaded (the TPU kernel's block skip), and both
-// apply the same mask function to every score.  Products are float32 FMAs
-// on the CUDA cores: no tensor cores (TF32 keeps 10 mantissa bits, too few
-// for the port's 1e-4 bound), no library.  One launch per attention call:
-// 32 per prefill and 32 per decode step of stablelm-3b.
+// apply the same mask function to every score.  No library.  One launch
+// per attention call: 32 per prefill and 32 per decode step of
+// stablelm-3b.
+//
+// 3xTF32.  A TF32 operand keeps 10 of float32's 23 mantissa bits: one
+// TF32 product misses the port's 1e-4 logit bound (1.9e-3 on stablelm-3b's
+// logits).  Here each operand x is split into hi = rna_tf32(x) and lo =
+// rna_tf32(x - hi), so x - hi - lo is below 2^-22 |x|, and a product takes
+// three mma.sync.m16n8k8 TF32 instructions with float32 sums, hi lo + lo hi
+// first and then hi hi; the dropped lo lo is below 2^-22 of the product.
+// Emulated in numpy (tests/test_torch_attention.py, S 256, hd 80, causal)
+// the scheme lands 6.0e-7 from float64, within float32's own rounding,
+// while one TF32 pass is 9.8e-4 off; the kernel is held to the reference
+// kernel tests' 2e-5.  The softmax scale is applied to the float32 scores
+// after the product.
 //
 // Bound.  Prefill at B = 8, H = 32, S = 1024, hd = 80, causal: the causal
-// triangle needs 43.0 GFLOP (0.64 ms at 67 TFLOP/s float32) and moves
-// 335.5 MB (0.10 ms at 3.35 TB/s): operations bind.  Decode at kv_len
-// about 1040: reading the valid K and V, about 170 MB (0.05 ms), binds.
+// triangle needs 43.0 GFLOP, 0.64 ms at the 67 TFLOP/s of float32 FMAs on
+// the CUDA cores, the bound chip_smoke.py reports; in 3xTF32 the tensor
+// cores do three times that, 0.26 ms at 495 TFLOP/s TF32 (mma.sync
+// reaches only part of that rate).  It moves 335.5 MB (0.10 ms at 3.35
+// TB/s).  Decode at kv_len about 1040: reading the valid K and V, about
+// 170 MB (0.05 ms), binds.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -59,10 +93,8 @@ namespace {
 // yet has s = m' = NEG_INF, and exp(-inf - -inf) would be nan.  The
 // exponential is then re-masked by a select, not a product (exp(0) = 1).
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;          // queries of a tile CTA
+constexpr int kThreads = 256;    // threads of a rows CTA
 constexpr int kBK = 64;          // keys of a KV tile
-constexpr int kLdT = kBK + 4;    // leading dim of the transposed tiles
 constexpr int kMaxHd = 128;
 constexpr int kRowsMaxSq = 4;    // Sq at or below which each query has a CTA
 constexpr int kWarps = kThreads / 32;
@@ -93,43 +125,286 @@ __device__ __forceinline__ void key_range(int q_first, int q_last, int seq_k,
   *lo = sh.window ? max(0, q_first - sh.window + 1) : 0;
 }
 
-__device__ __forceinline__ float row_max16(float x) {
+// ------------------------------------------------------- tile configuration
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous global -> shared copies; `in` false writes zeros and reads
+// nothing (src-size 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = hi + lo + (below 2^-22 |x|): both TF32, rounded to nearest, ties away.
+__device__ __forceinline__ uint2 split_tf32(float x) {
+  uint32_t hi, lo;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+  return make_uint2(hi, lo);
+}
+
+// d += a b: one m16n8k8 product on the tensor cores, TF32 in, float32 sums.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: d += a b for a = ah + al, b = bh + bl; the small products first,
+// al bl dropped.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ah,
+                                           const uint32_t* al,
+                                           const uint32_t* bh,
+                                           const uint32_t* bl) {
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bh);
+}
+
+constexpr size_t kSmemMax = 232448;  // shared memory a CTA may have
+
+// 2^x in one MUFU.EX2 (relative error about 2^-22; results below 2^-126,
+// far under the 2e-5 bound next to the row's largest term 1, flush to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared memory of the tile configuration at head HDP, 32-bit words; each
+// split tile is two planes, hi then lo, laid out so that every mma
+// fragment a lane needs is one load into the registers the instruction
+// takes:
+//   Q   [warp][k step][lane][4]: the lane's A fragment (a0..a3), one
+//       128-bit load;
+//   K   [key][head, LDK]: within each 8 head columns, column t at 2t and
+//       t + 4 at 2t + 1, so (b0, b1) is one 64-bit load;
+//   V^T [head][key, LDV]: keys 2t and 2t + 1, (b0, b1) of the p v
+//       product, side by side, one 64-bit load.
+// V^T passes through K's buffer after the scores.  Raw K and V tiles
+// stage the cp.async copies.
+template <int HDP>
+struct Tile {
+  // row strides: 8 mod 16 words, so a warp's 64-bit loads of rows g and
+  // columns 2t hit distinct banks
+  static constexpr int LDK = HDP % 16 ? HDP : HDP + 8;
+  static constexpr int LDV = kBK + 8;
+  static constexpr int KW = 2 * kBK * LDK;  // words of split K
+  static constexpr int VW = 2 * HDP * LDV;  // words of split V^T
+  static constexpr int SW = KW > VW ? KW : VW;  // words of the split buffer
+  static constexpr size_t bytes(int bq) {
+    return sizeof(uint32_t) *
+           (static_cast<size_t>(2 * bq * HDP) + SW + 2 * kBK * HDP);
+  }
+  // queries of a CTA: 16 a warp, 8 warps while shared memory allows
+  static constexpr int BQ = bytes(128) <= kSmemMax ? 128 : 64;
+  static constexpr int NT = 2 * BQ;  // threads
+  static constexpr size_t SMEM = bytes(BQ);
+};
+
+// Rows row0..row0 + ROWS - 1 of src (row stride `step`, hd floats a row)
+// into dst (ROWS x HDP floats) by cp.async, rows at or past `end`
+// zero-filled and never read; columns hd..HDP-1 are left alone.
+template <int HDP, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int64_t step, int row0, int end,
+                                          int hd, bool vec) {
+  if (vec) {
+    constexpr int CPR = HDP / 4;  // 16-byte chunks a row
+#pragma unroll 4
+    for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
+      const int j = c / CPR, x = (c - j * CPR) * 4, row = row0 + j;
+      const bool in = row < end;
+      if (x < hd) cp_async16(dst + j * HDP + x, in ? src + row * step + x : src,
+                             in);
+    }
+  } else {
+#pragma unroll 4
+    for (int c = threadIdx.x; c < ROWS * HDP; c += NT) {
+      const int j = c / HDP, x = c - j * HDP, row = row0 + j;
+      const bool in = row < end;
+      if (x < hd) cp_async4(dst + j * HDP + x, in ? src + row * step + x : src,
+                            in);
+    }
+  }
+}
+
+// Zeros columns hd..HDP-1 (fewer than 8) of a ROWS x HDP raw tile.
+template <int HDP, int ROWS, int NT>
+__device__ __forceinline__ void zero_pad(float* dst, int hd) {
+  for (int c = threadIdx.x; c < ROWS * 8; c += NT) {
+    const int x = hd + (c & 7);
+    if (x < HDP) dst[(c >> 3) * HDP + x] = 0.f;
+  }
+}
+
+// The raw BQ x HDP Q tile into A fragments: lane (g, t) of warp w at k
+// step kk holds rows 16 w + g, + 8 and columns 8 kk + t, + 4.
+template <int HDP, int BQ, int NT>
+__device__ __forceinline__ void split_q(uint4* hi, uint4* lo,
+                                        const float* raw) {
+  constexpr int NK = HDP / 8;
+#pragma unroll 2
+  for (int e = threadIdx.x; e < BQ / 16 * NK * 32; e += NT) {
+    const int lane = e & 31, kk = (e >> 5) % NK, w = (e >> 5) / NK;
+    const float* x = raw + (16 * w + (lane >> 2)) * HDP + 8 * kk + (lane & 3);
+    const uint2 a0 = split_tf32(x[0]), a1 = split_tf32(x[8 * HDP]);
+    const uint2 a2 = split_tf32(x[4]), a3 = split_tf32(x[8 * HDP + 4]);
+    hi[e] = make_uint4(a0.x, a1.x, a2.x, a3.x);
+    lo[e] = make_uint4(a0.y, a1.y, a2.y, a3.y);
+  }
+}
+
+// The raw kBK x HDP K tile into rows of stride LDK, each 8 head columns
+// in the order (0, 4, 1, 5, 2, 6, 3, 7).
+template <int HDP, int LDK, int NT>
+__device__ __forceinline__ void split_k(uint32_t* hi, uint32_t* lo,
+                                        const float* raw) {
+#pragma unroll 2
+  for (int e = threadIdx.x; e < kBK * HDP / 8; e += NT) {
+    const int j = e / (HDP / 8), c = 8 * (e - j * (HDP / 8));
+    const float4 x = *reinterpret_cast<const float4*>(raw + j * HDP + c);
+    const float4 y = *reinterpret_cast<const float4*>(raw + j * HDP + c + 4);
+    const uint2 a0 = split_tf32(x.x), a4 = split_tf32(y.x);
+    const uint2 a1 = split_tf32(x.y), a5 = split_tf32(y.y);
+    const uint2 a2 = split_tf32(x.z), a6 = split_tf32(y.z);
+    const uint2 a3 = split_tf32(x.w), a7 = split_tf32(y.w);
+    uint4* h = reinterpret_cast<uint4*>(hi + j * LDK + c);
+    uint4* l = reinterpret_cast<uint4*>(lo + j * LDK + c);
+    h[0] = make_uint4(a0.x, a4.x, a1.x, a5.x);
+    h[1] = make_uint4(a2.x, a6.x, a3.x, a7.x);
+    l[0] = make_uint4(a0.y, a4.y, a1.y, a5.y);
+    l[1] = make_uint4(a2.y, a6.y, a3.y, a7.y);
+  }
+}
+
+// The raw kBK x HDP V tile, transposed into rows of stride LDV.
+template <int HDP, int LDV, int NT>
+__device__ __forceinline__ void split_v(uint32_t* hi, uint32_t* lo,
+                                        const float* raw) {
+#pragma unroll 2
+  for (int e = threadIdx.x; e < kBK / 4 * HDP; e += NT) {
+    const int j = 4 * (e / HDP), d = e - (j / 4) * HDP;
+    const uint2 a0 = split_tf32(raw[j * HDP + d]);
+    const uint2 a1 = split_tf32(raw[(j + 1) * HDP + d]);
+    const uint2 a2 = split_tf32(raw[(j + 2) * HDP + d]);
+    const uint2 a3 = split_tf32(raw[(j + 3) * HDP + d]);
+    *reinterpret_cast<uint4*>(hi + d * LDV + j) =
+        make_uint4(a0.x, a1.x, a2.x, a3.x);
+    *reinterpret_cast<uint4*>(lo + d * LDV + j) =
+        make_uint4(a0.y, a1.y, a2.y, a3.y);
+  }
+}
+
+// The online softmax of one warp's tile on its score fragments: s[j][c]
+// is row qr[c >> 1], key k0 + 8 j + 2 t + (c & 1), in log2 units (scale
+// times log2 e).  MASKED tiles hold a key or row some query may not see:
+// those scores become kNegInf and their exponentials are selected to 0.
+template <bool MASKED, int NK>
+__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&acc)[NK][4],
+                                               const int (&qr)[2], int k0,
+                                               int t, int seq_k, float sl2,
+                                               const Shape& sh) {
+  uint32_t vis = 0;
+  float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+    for (int c = 0; c < 4; ++c) {
+      if (MASKED) {
+        const bool in = visible(qr[c >> 1], k0 + 8 * j + 2 * t + (c & 1),
+                                sh.Sq, seq_k, sh);
+        vis |= static_cast<uint32_t>(in) << (4 * j + c);
+        s[j][c] = in ? s[j][c] * sl2 : kNegInf;
+      } else {
+        s[j][c] *= sl2;
+      }
+      mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+    }
+  float corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    corr[i] = exp2_approx(m[i] - m_new);
+    m[i] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float p = exp2_approx(s[j][c] - m[c >> 1]);
+      s[j][c] = !MASKED || ((vis >> (4 * j + c)) & 1u) ? p : 0.f;  // select
+      sum[c >> 1] += s[j][c];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    l[i] = l[i] * corr[i] + sum[i];
+  }
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] *= corr[c >> 1];
 }
 
-size_t tile_smem_bytes(int hd) {
-  return sizeof(float) * (static_cast<size_t>(2 * hd + kBK) * kLdT +
-                          static_cast<size_t>(kBK) * hd);
-}
-
-// CPT = ceil(hd / 16): output columns per thread.
-template <int CPT>
-__global__ void __launch_bounds__(kThreads)
+// HDP: the head width padded to a multiple of 8.
+template <int HDP>
+__global__ void __launch_bounds__(Tile<HDP>::NT, 1)
 flash_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   const int* __restrict__ kv_len, Shape sh) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int hd = sh.hd;
-  float* sQt = smem;                  // hd x kLdT: Q tile, transposed
-  float* sKt = sQt + hd * kLdT;       // hd x kLdT: K tile, transposed
-  float* sPt = sKt + hd * kLdT;       // kBK x kLdT: probabilities, transposed
-  float* sV = sPt + kBK * kLdT;       // kBK x hd
+  using C = Tile<HDP>;
+  constexpr int BQ = C::BQ, NT = C::NT, LDK = C::LDK, LDV = C::LDV;
+  constexpr int NK = HDP / 8;  // k steps of q k^T, n tiles of p v
+  extern __shared__ uint4 smem4[];
+  uint4* sQh = smem4;                      // BQ HDP / 4 fragments each
+  uint4* sQl = sQh + BQ * HDP / 4;
+  uint32_t* sKh = reinterpret_cast<uint32_t*>(sQl + BQ * HDP / 4);
+  uint32_t* sKl = sKh + kBK * LDK;
+  uint32_t* sVh = sKh;  // HDP x LDV each, after the scores
+  uint32_t* sVl = sVh + HDP * LDV;
+  float* rawK = reinterpret_cast<float*>(sKh + C::SW);
+  float* rawV = rawK + kBK * HDP;                // kBK x HDP each
+  float* rawQ = reinterpret_cast<float*>(sKh);  // BQ x HDP, staged once
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int hd = sh.hd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // mma group and thread in group
   const int r = blockIdx.x;
   const int b = r / sh.H, h = r % sh.H, kvh = h / (sh.H / sh.K);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
   const int seq_k = true_len(kv_len, sh);
   const int64_t q_step = static_cast<int64_t>(sh.H) * hd;  // token stride
   const int64_t k_step = static_cast<int64_t>(sh.K) * hd;
@@ -137,108 +412,141 @@ flash_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (static_cast<int64_t>(b) * sh.Skv * sh.K + kvh) * hd;
   const float* vb = v + (static_cast<int64_t>(b) * sh.Skv * sh.K + kvh) * hd;
   float* ob = o + (static_cast<int64_t>(b) * sh.Sq * sh.H + h) * hd;
-
-  for (int e = tid; e < kBQ * hd; e += kThreads) {
-    const int i = e / hd, d = e - i * hd, s = q0 + i;
-    sQt[d * kLdT + i] = s < sh.Sq ? qb[s * q_step + d] : 0.f;
-  }
-  float m[4], l[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
+  const bool vec = (hd & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(q) |
+                     reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  const float sl2 = sh.scale * 1.4426950408889634f;  // scale * log2 e
 
   int lo, hi;
-  key_range(q0, min(q0 + kBQ, sh.Sq) - 1, seq_k, sh, &lo, &hi);
-  for (int k0 = (lo / kBK) * kBK; k0 < hi; k0 += kBK) {
-    __syncthreads();  // Q is staged; the last tile's readers are done
-    for (int e = tid; e < kBK * hd; e += kThreads) {
-      const int j = e / hd, d = e - j * hd, t = k0 + j;
-      const bool in = t < hi;  // keys past hi are masked: never loaded
-      sKt[d * kLdT + j] = in ? kb[t * k_step + d] : 0.f;
-      sV[j * hd + d] = in ? vb[t * k_step + d] : 0.f;
-    }
+  key_range(q0, min(q0 + BQ, sh.Sq) - 1, seq_k, sh, &lo, &hi);
+  const int kfirst = (lo / kBK) * kBK;
+  const int ntiles = hi > kfirst ? (hi - kfirst + kBK - 1) / kBK : 0;
+  load_rows<HDP, BQ, NT>(rawQ, qb, q_step, q0, sh.Sq, hd, vec);
+  cp_async_commit();
+  if (ntiles > 0) {
+    load_rows<HDP, kBK, NT>(rawK, kb, k_step, kfirst, hi, hd, vec);
+    cp_async_commit();
+    load_rows<HDP, kBK, NT>(rawV, vb, k_step, kfirst, hi, hd, vec);
+    cp_async_commit();
+  }
+  // head columns hd..HDP-1: never copied, always zero
+  zero_pad<HDP, BQ, NT>(rawQ, hd);
+  zero_pad<HDP, kBK, NT>(rawK, hd);
+  zero_pad<HDP, kBK, NT>(rawV, hd);
+  if (ntiles > 0) {
+    cp_async_wait<2>();  // Q has landed
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  split_q<HDP, BQ, NT>(sQh, sQl, rawQ);
+
+  // this warp's rows: wq, wq + 1, ..., and the keys they may see
+  const int wq = q0 + 16 * warp;
+  const int qr[2] = {wq + g, wq + g + 8};  // the thread's two rows
+  int wlo, whi;
+  key_range(wq, min(wq + 16, sh.Sq) - 1, seq_k, sh, &wlo, &whi);
+  const bool wlive = wq < sh.Sq;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NK][4];
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = kfirst + it * kBK;
+    const bool more = it + 1 < ntiles;
+    cp_async_wait<1>();  // K of this tile has landed
+    __syncthreads();     // ... for every thread; the last p v is done
+    split_k<HDP, LDK, NT>(sKh, sKl, rawK);
     __syncthreads();
+    // the next K's loads run beside the scores and the softmax
+    if (more) load_rows<HDP, kBK, NT>(rawK, kb, k_step, k0 + kBK, hi, hd, vec);
+    cp_async_commit();  // empty at the last tile: the count stays even
 
-    float s[4][4];
+    const bool work = wlive && k0 < whi && k0 + kBK > wlo;
+    float s[8][4];
+    if (work) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < hd; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&sQt[d * kLdT + 4 * ty]);
-      const float4 c = *reinterpret_cast<const float4*>(&sKt[d * kLdT + 4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
+        for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+      // s = q k^T: A from split Q (rows g, g + 8; columns t, t + 4 of
+      // each k step), B from split K (key g, columns t, t + 4)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int kk = 0; kk < NK; ++kk) {
+        const uint4 xh = sQh[(warp * NK + kk) * 32 + lane];
+        const uint4 xl = sQl[(warp * NK + kk) * 32 + lane];
+        const uint32_t ah[4] = {xh.x, xh.y, xh.z, xh.w};
+        const uint32_t al[4] = {xl.x, xl.y, xl.z, xl.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
+        for (int j = 0; j < 8; ++j) {
+          const int at = (8 * j + g) * LDK + 8 * kk + 2 * t;
+          const uint2 yh = *reinterpret_cast<const uint2*>(sKh + at);
+          const uint2 yl = *reinterpret_cast<const uint2*>(sKl + at);
+          const uint32_t bh[2] = {yh.x, yh.y}, bl[2] = {yl.x, yl.y};
+          mma_3xtf32(s[j], ah, al, bh, bl);
+        }
+      }
+      // a tile every score of which the warp's rows see needs no mask
+      const bool full = k0 + kBK <= seq_k && wq + 16 <= sh.Sq &&
+                        (!sh.causal || k0 + kBK - 1 <= wq) &&
+                        (sh.window == 0 || k0 > wq + 15 - sh.window);
+      if (full) {
+        online_softmax<false>(s, m, l, acc, qr, k0, t, seq_k, sl2, sh);
+      } else {
+        online_softmax<true>(s, m, l, acc, qr, k0, t, seq_k, sl2, sh);
+      }
     }
 
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + 4 * ty + i;
-      bool vis[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        vis[j] = visible(qp, k0 + 4 * tx + j, sh.Sq, seq_k, sh);
-        s[i][j] = vis[j] ? s[i][j] * sh.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = vis[j] ? expf(s[i][j] - m_new) : 0.f;  // select, not * mask
-        sum += p[i][j];
-      }
-      l[i] = l[i] * corr + row_sum16(sum);
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= corr;
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&sPt[(4 * tx + j) * kLdT + 4 * ty]) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+    cp_async_wait<1>();  // V of this tile has landed
+    __syncthreads();     // ... for every thread; every q k^T is done
+    split_v<HDP, LDV, NT>(sVh, sVl, rawV);
     __syncthreads();
+    // the next V's loads run beside p v
+    if (more) load_rows<HDP, kBK, NT>(rawV, vb, k_step, k0 + kBK, hi, hd, vec);
+    cp_async_commit();
 
-#pragma unroll 4
-    for (int t = 0; t < kBK; ++t) {
-      const float4 pp = *reinterpret_cast<const float4*>(&sPt[t * kLdT + 4 * ty]);
-      const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
+    if (work) {
+      // acc += p v over 8 k steps of 8 keys, each taken in the order 2t,
+      // 2t + 1 (A columns t, t + 4): P straight from the accumulators, V's
+      // B fragment from keys 2t and 2t + 1 of head column g
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int col = tx + 16 * c;
-        const float vv = col < hd ? sV[t * hd + col] : 0.f;
+      for (int j = 0; j < 8; ++j) {
+        const uint2 p0 = split_tf32(s[j][0]), p1 = split_tf32(s[j][2]);
+        const uint2 p2 = split_tf32(s[j][1]), p3 = split_tf32(s[j][3]);
+        const uint32_t ah[4] = {p0.x, p1.x, p2.x, p3.x};
+        const uint32_t al[4] = {p0.y, p1.y, p2.y, p3.y};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+        for (int n = 0; n < NK; ++n) {
+          const int at = (8 * n + g) * LDV + 8 * j + 2 * t;
+          const uint2 yh = *reinterpret_cast<const uint2*>(sVh + at);
+          const uint2 yl = *reinterpret_cast<const uint2*>(sVl + at);
+          const uint32_t bh[2] = {yh.x, yh.y}, bl[2] = {yl.x, yl.y};
+          mma_3xtf32(acc[n], ah, al, bh, bl);
+        }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + 4 * ty + i;
-    if (s >= sh.Sq) continue;
+  for (int i = 0; i < 2; ++i) {
+    const int row = qr[i];
+    if (row >= sh.Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = tx + 16 * c;
-      if (col < hd) ob[s * q_step + col] = acc[i][c] / den;
+    for (int n = 0; n < NK; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (col < hd) ob[row * q_step + col] = acc[n][2 * i] / den;
+      if (col + 1 < hd) ob[row * q_step + col + 1] = acc[n][2 * i + 1] / den;
     }
   }
 }
 
-// DJ = ceil(hd / 32): head dims per lane.
+// ------------------------------------------------------- rows configuration
+
 template <int DJ>
 __global__ void __launch_bounds__(kThreads)
 flash_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -344,16 +652,17 @@ flash_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int CPT>
+template <int HDP>
 int launch_tile(const float* q, const float* k, const float* v, float* o,
                 const int* kv_len, const Shape& sh, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(sh.hd);
+  using C = Tile<HDP>;
+  if (sh.Sq > 65535 * C::BQ) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_tile_kernel<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_tile_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(sh.B * sh.H, (sh.Sq + kBQ - 1) / kBQ);
-  flash_tile_kernel<CPT><<<grid, kThreads, smem, stream>>>(q, k, v, o,
+  const dim3 grid(sh.B * sh.H, (sh.Sq + C::BQ - 1) / C::BQ);
+  flash_tile_kernel<HDP><<<grid, C::NT, C::SMEM, stream>>>(q, k, v, o,
                                                            kv_len, sh);
   return static_cast<int>(cudaGetLastError());
 }
@@ -397,16 +706,23 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
       default: return launch_rows<4>(qf, kf, vf, of, len, sh, st);
     }
   }
-  if (Sq > 65535 * kBQ) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((hd + 15) / 16) {
-    case 1: return launch_tile<1>(qf, kf, vf, of, len, sh, st);
-    case 2: return launch_tile<2>(qf, kf, vf, of, len, sh, st);
-    case 3: return launch_tile<3>(qf, kf, vf, of, len, sh, st);
-    case 4: return launch_tile<4>(qf, kf, vf, of, len, sh, st);
-    case 5: return launch_tile<5>(qf, kf, vf, of, len, sh, st);
-    case 6: return launch_tile<6>(qf, kf, vf, of, len, sh, st);
-    case 7: return launch_tile<7>(qf, kf, vf, of, len, sh, st);
-    default: return launch_tile<8>(qf, kf, vf, of, len, sh, st);
+  switch ((hd + 7) / 8) {
+    case 1: return launch_tile<8>(qf, kf, vf, of, len, sh, st);
+    case 2: return launch_tile<16>(qf, kf, vf, of, len, sh, st);
+    case 3: return launch_tile<24>(qf, kf, vf, of, len, sh, st);
+    case 4: return launch_tile<32>(qf, kf, vf, of, len, sh, st);
+    case 5: return launch_tile<40>(qf, kf, vf, of, len, sh, st);
+    case 6: return launch_tile<48>(qf, kf, vf, of, len, sh, st);
+    case 7: return launch_tile<56>(qf, kf, vf, of, len, sh, st);
+    case 8: return launch_tile<64>(qf, kf, vf, of, len, sh, st);
+    case 9: return launch_tile<72>(qf, kf, vf, of, len, sh, st);
+    case 10: return launch_tile<80>(qf, kf, vf, of, len, sh, st);
+    case 11: return launch_tile<88>(qf, kf, vf, of, len, sh, st);
+    case 12: return launch_tile<96>(qf, kf, vf, of, len, sh, st);
+    case 13: return launch_tile<104>(qf, kf, vf, of, len, sh, st);
+    case 14: return launch_tile<112>(qf, kf, vf, of, len, sh, st);
+    case 15: return launch_tile<120>(qf, kf, vf, of, len, sh, st);
+    default: return launch_tile<128>(qf, kf, vf, of, len, sh, st);
   }
 }
 

@@ -133,6 +133,61 @@ def test_masked_rows_give_zeros_not_nan():
     assert torch.equal(got[:, 72:], torch.zeros_like(got[:, 72:]))
 
 
+def _tf32(x):
+    """float32 rounded to TF32: 10 mantissa bits, to nearest, ties away
+    from zero (PTX cvt.rna.tf32.f32 on finite values)."""
+    bits = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _tf32_product(a, b, passes):
+    """a @ b as the kernel's mma.sync passes compute it, float32 sums: one
+    TF32 pass, or 3xTF32 (x = hi + lo, both TF32; hi lo + lo hi, then hi
+    hi; lo lo dropped)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_hi @ b_lo + a_lo @ b_hi) + a_hi @ b_hi
+
+
+def test_3xtf32_split_meets_flash_tol(record_property):
+    """The tile configuration of the CUDA kernel runs q k^T and p v on the
+    tensor cores, whose inputs are TF32.  One TF32 pass keeps 10 of
+    float32's 23 mantissa bits and lands about 1e-3 from float64 here, 50x
+    the reference kernel tests' 2e-5 (and one TF32 pass on the model's
+    products misses the 1e-4 logit bound), so plain TF32 stays forbidden.
+    Splitting each operand into two TF32 terms and summing three products
+    leaves only the lo lo term and the split's remainder, both below 2^-22
+    of the product: the result stays within float32's own rounding (about
+    6e-7 here), which is why the kernel may use this scheme.  Emulated in
+    numpy at stablelm-3b's head width on a seeded causal case."""
+    rng = np.random.default_rng(17)
+    S, hd = 256, 80
+    q, k, v = (rng.standard_normal((S, hd)).astype(np.float32)
+               for _ in range(3))
+    scale = np.float32(1.0 / np.sqrt(hd))
+    causal = np.tril(np.ones((S, S), bool))
+
+    def attention(passes):
+        s = np.where(causal, _tf32_product(q, k.T, passes) * scale,
+                     np.float32(-1e30))
+        p = np.where(causal, np.exp(s - s.max(axis=1, keepdims=True)), 0)
+        p = p.astype(np.float32)
+        return _tf32_product(p, v, passes) / p.sum(axis=1, keepdims=True)
+
+    s64 = (q.astype(np.float64) @ k.T.astype(np.float64)) * (hd ** -0.5)
+    s64 = np.where(causal, s64, -np.inf)
+    p64 = np.exp(s64 - s64.max(axis=1, keepdims=True))
+    want = (p64 @ v.astype(np.float64)) / p64.sum(axis=1, keepdims=True)
+    bound = TOL * max(1.0, float(np.abs(want).max()))
+    err3 = float(np.abs(attention(3) - want).max())
+    err1 = float(np.abs(attention(1) - want).max())
+    record_property("err_3xtf32", err3)
+    record_property("err_1xtf32", err1)   # recorded, not asserted
+    assert err3 <= bound, (err3, bound)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in rand_qkv(0, 1, 8, 2, 2, 16))
     launches = flash_fwd.launches

@@ -76,6 +76,43 @@ def test_seq_kernel_bitwise_vs_plain(cuda_device, dtype, R, L):
         assert torch.equal(got.cpu(), want)
 
 
+# rows of odd length (float64 rows then start off a 16-byte boundary, and
+# reset rows off a 4-byte one) and more rows than the card has SMs
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("R,L", [(300, 1001), (1000, 8155)])
+def test_seq_kernel_bitwise_on_unaligned_rows(cuda_device, dtype, R, L):
+    a, s = make(R, L, R + L, dtype)
+    reset = torch.zeros((R, L), dtype=torch.bool)
+    reset[:, L // 3] = True
+    reset[::7, 5] = True
+    init = torch.linspace(0.0, 8.0, R, dtype=dtype)
+    for kw in ({}, {"reset": reset}, {"init": init}):
+        want = maxplus_depart_ref(a, s, **kw)
+        got = maxplus_seq(a.to(cuda_device), s.to(cuda_device),
+                          **{k: v.to(cuda_device) for k, v in kw.items()})
+        assert torch.equal(got.cpu(), want)
+
+
+# the rows a CTA owns come from R and the SM count (132 on an H100: one
+# row a CTA up to 132 rows, two at 133); they must not change a bit
+@pytest.mark.parametrize("R", [1, 131, 132, 133])
+def test_seq_kernel_rows_per_cta_is_bit_invisible(cuda_device, R):
+    L = 700
+    a, s = make(R, L, 3 * R, torch.float64)
+    reset = torch.zeros((R, L), dtype=torch.bool)
+    reset[:, 250] = True
+    init = torch.linspace(0.0, 8.0, R, dtype=torch.float64)
+    for kw in ({}, {"reset": reset}, {"init": init}):
+        kw = {k: v.to(cuda_device) for k, v in kw.items()}
+        a_d, s_d = a.to(cuda_device), s.to(cuda_device)
+        together = maxplus_seq(a_d, s_d, **kw)
+        for r in range(R):
+            one = {k: v[r:r + 1].contiguous() for k, v in kw.items()}
+            alone = maxplus_seq(a_d[r:r + 1].contiguous(),
+                                s_d[r:r + 1].contiguous(), **one)
+            assert torch.equal(alone, together[r:r + 1]), r
+
+
 def test_wrappers_count_and_reject(cuda_device):
     a, s = make(4, 64, 0, torch.float64)
     a, s = a.to(cuda_device), s.to(cuda_device)
@@ -216,7 +253,11 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
 # (hd 80), the reference kernel tests' cases (GQA, MQA, ragged 33,
 # windows), hd 128 and a width that ends inside a thread's columns; the
 # one-query (decode) configuration with a true length, and two queries
-# with causal and window masks through it
+# with causal and window masks through it.  Then the tile configuration
+# at heads that are not a multiple of 8 (zero-filled to one: 36, 100, and
+# 7, which is not a multiple of 4 either and is staged by 4-byte copies),
+# one row of the serve shape (S 1024: 16 KV tiles, heaviest first), and
+# Sq 5, the fewest queries that take the tile configuration
 @pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,kv_len", [
     (2, 200, 200, 4, 4, 80, True, 0, None),
     (2, 64, 64, 4, 2, 64, True, 0, None),
@@ -232,6 +273,13 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
     (4, 1, 1056, 8, 8, 80, False, 0, 1025),
     (2, 1, 300, 4, 2, 16, False, 0, 1),
     (2, 3, 40, 4, 2, 80, True, 2, None),
+    (2, 100, 100, 4, 2, 36, True, 0, None),
+    (1, 150, 150, 2, 2, 100, True, 0, None),
+    (1, 90, 90, 2, 1, 100, False, 0, 77),
+    (2, 40, 40, 2, 1, 7, True, 5, None),
+    (1, 1024, 1024, 2, 2, 80, True, 0, None),
+    (2, 5, 5, 4, 2, 80, True, 0, None),
+    (2, 5, 70, 4, 4, 80, False, 0, 66),
 ])
 def test_flash_kernel_vs_plain(cuda_device, B, Sq, Skv, H, K, hd, causal,
                                window, kv_len):
@@ -255,6 +303,32 @@ def test_flash_kernel_vs_plain(cuda_device, B, Sq, Skv, H, K, hd, causal,
     torch.testing.assert_close(
         got.cpu(), naive.reshape(B, H, Sq, hd).transpose(1, 2), rtol=2e-5,
         atol=2e-5)
+
+
+def test_flash_tile_is_float32_accurate(cuda_device):
+    """The tile configuration's 3xTF32 products keep float32 accuracy:
+    against a float64 oracle, at most 8x as far as the plain float32
+    version, which leaves room for the split's remainder, ex2.approx
+    and the online softmax's rescales; one TF32 pass, emulated, lands
+    about 2000x as far.  The seed and inputs of the CPU emulation of the
+    scheme, test_torch_attention.py::test_3xtf32_split_meets_flash_tol:
+    stablelm-3b's head width, causal, S 256."""
+    rng = np.random.default_rng(17)
+    S, hd = 256, 80
+    q, k, v = (rng.standard_normal((S, hd)).astype(np.float32)
+               for _ in range(3))
+    causal = np.tril(np.ones((S, S), bool))
+    s64 = (q.astype(np.float64) @ k.T.astype(np.float64)) * hd ** -0.5
+    s64 = np.where(causal, s64, -np.inf)
+    p64 = np.exp(s64 - s64.max(axis=1, keepdims=True))
+    want = (p64 @ v.astype(np.float64)) / p64.sum(axis=1, keepdims=True)
+    qkv = [torch.from_numpy(x)[None, :, None, :] for x in (q, k, v)]
+    plain = flash_attention(*qkv, causal=True)[0, :, 0]
+    got = flash_attention(*(t.to(cuda_device) for t in qkv),
+                          causal=True)[0, :, 0].cpu()
+    err_plain = float(np.abs(plain.double().numpy() - want).max())
+    err = float(np.abs(got.double().numpy() - want).max())
+    assert err <= 8 * err_plain, (err, err_plain)
 
 
 def test_flash_wrapper_counts_and_rejects(cuda_device):
