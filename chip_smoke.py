@@ -7,13 +7,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 and holds each against its plain PyTorch version on the card, and times
 it: the max-plus scans at (1000, 8192), the SSD scan at the serve path's
 own scans (mLSTM's numerator and denominator, and a strong decay that
-must stay finite; ``y`` and the final state), flash attention at the
-dense serve path's prefill (causal) and decode (one query over the
-cache's valid prefix) shapes, paged decode attention at stablelm-3b's
-decode and mixtral-8x7b's GQA shape (timed; also against flash attention
-over the same tokens held contiguously), granite-20b's MQA shape and
-pages of 16 and 12 tokens.  Then it drives the port's main paths
-through their entry points.  The batched sweep engine, ``run_sweep``:
+must stay finite; ``y`` and the final state; each stage's time from
+torch.profiler, the peak device memory of a call, and one request's
+scans too), flash attention at the dense serve path's prefill (causal)
+and decode (one query over the cache's valid prefix) shapes, paged
+decode attention at stablelm-3b's decode and mixtral-8x7b's GQA shape
+(timed; also against flash attention over the same tokens held
+contiguously), granite-20b's MQA shape and pages of 16 and 12 tokens.
+Then it drives the port's main paths through their entry points.  The
+batched sweep engine, ``run_sweep``:
 
 * open loop: the 64-point ``sweep_grid()``, checked <= 1e-9 per column
   against the same grid run by the port on the CPU (plain versions);
@@ -372,22 +374,72 @@ def ssd_work(BH: int, S: int, P: int, N: int, Q: int, h0: bool) -> tuple:
     return 4 * floats, min(chunked, recurrent)
 
 
+# the SSD kernel's CUDA kernels, by a fragment of their names, and the
+# stage each is
+SSD_STAGES = (("ssd_intra", "intra"), ("ssd_states", "states"),
+              ("ssd_pass", "pass"), ("ssd_out", "out"),
+              ("ssd_vec_states", "vec_states"), ("ssd_vec_out", "vec_out"))
+
+
+def stage_ms(fn, stages, calls: int = 5) -> dict:
+    """Device ms a call of each stage of ``fn``, from torch.profiler over
+    ``calls`` calls: ``stages`` maps a fragment of a CUDA kernel's name
+    to its stage; kernels that match none are summed under "other"."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        stage = next((s for f, s in stages if f in e.name), "other")
+        out[stage] = (out.get(stage, 0.0)
+                      + e.time_range.elapsed_us() / 1e3 / calls)
+    return out
+
+
+def call_peak_mb(fn, dev) -> float:
+    """Device memory one call of ``fn`` allocates above what is already
+    allocated (its inputs), at its peak, in MB."""
+    import torch
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    del out
+    return (torch.cuda.max_memory_allocated(dev) - base) / 1e6
+
+
 def ssd_kernel_phase(card: dict, dev) -> dict:
     """The SSD kernel at the serve path's scans, BH = 8 requests x 4
     heads, S = 1024, N = 384, Q = 128: mLSTM's numerator (P = 384, from
     zero and from a random state) and denominator (P = 1), and a strong
     decay (60 nats a token) whose masked exponentials overflow; y and
     h_final against the plain chunked version on the same inputs, then
-    timed beside it and its bound."""
+    timed beside it and its bound (and, for the numerator, whose
+    products run in 3xTF32, the tensor cores' figure), with each stage's
+    time from torch.profiler and the peak device memory of one call
+    above its inputs; the numerator and denominator again at one
+    request (BH 4)."""
     import torch
     from repro_torch.kernels.ssm_scan import ssd_chunked_ref, ssm_scan
 
-    BH, S, N, Q = 32, 1024, 384, 128
+    S, N, Q = 1024, 384, 128
     out = {}
-    for case, P, decay, with_h0 in (("numerator", 384, None, False),
-                                    ("numerator+h0", 384, None, True),
-                                    ("denominator", 1, None, False),
-                                    ("strong-decay", 384, -60.0, False)):
+    for case, BH, P, decay, with_h0 in (
+            ("numerator", 32, 384, None, False),
+            ("numerator+h0", 32, 384, None, True),
+            ("denominator", 32, 1, None, False),
+            ("strong-decay", 32, 384, -60.0, False),
+            ("numerator, one request", 4, 384, None, False),
+            ("denominator, one request", 4, 1, None, False)):
         args = ssd_inputs(BH, S, P, N, 3, dev, decay)
         h0 = (torch.randn((BH, N, P), generator=torch.Generator(
             dev).manual_seed(4), device=dev) if with_h0 else None)
@@ -402,24 +454,44 @@ def ssd_kernel_phase(card: dict, dev) -> dict:
             check(err <= bound, f"ssd {case}: {what} max_abs_err {err} > "
                   f"{bound}")
             errs[what] = err
+        del y, h, py, ph
         line = (f"ssd_chunked {case} (BH {BH}, S {S}, P {P}, N {N}, Q {Q}):"
                 f" max_abs_err vs plain y {errs['y']:.3e}, h_final "
                 f"{errs['h_final']:.3e} (tol {SSD_TOL} x max(1, |plain|))")
-        if case in ("numerator", "denominator"):
+        if "+h0" not in case and "strong" not in case:
             nbytes, ops = ssd_work(BH, S, P, N, Q, False)
             b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
             ms = time_ms(lambda: ssm_scan(*args, chunk=Q))
             plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=Q),
                                reps=1, windows=3)
+            stages = stage_ms(lambda: ssm_scan(*args, chunk=Q), SSD_STAGES)
+            peak = call_peak_mb(lambda: ssm_scan(*args, chunk=Q), dev)
+            # P > 1 runs its products in 3xTF32: three TF32 passes of the
+            # chunked form's operations; P = 1 runs the recurrence on the
+            # CUDA cores
+            tc_ms = 3 * ops / card["tf32"] * 1e3 if P > 1 else None
             line += (f"; {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
                      f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
-                     f"{ops / ms / 1e9:.2f} TFLOP/s achieved), plain "
-                     f"{plain_ms:.3f} ms, library - (no torch call "
-                     f"computes the SSD scan)")
+                     f"{ops / ms / 1e9:.2f} TFLOP/s, "
+                     f"{nbytes / ms / 1e9:.3f} TB/s achieved), "
+                     + (f"3xTF32 on the tensor cores {tc_ms:.4f} ms (3 x "
+                        f"ops at {card['tf32'] / 1e12:.0f} TFLOP/s)"
+                        if tc_ms is not None else
+                        "the recurrence on the CUDA cores")
+                     + f", plain {plain_ms:.3f} ms (kernel / plain "
+                     f"{ms / plain_ms:.3f}), library - (no torch call "
+                     f"computes the SSD scan); peak device memory of one "
+                     f"call {peak:.1f} MB above its inputs; by stage "
+                     f"(torch.profiler, ms a call) "
+                     + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
             out[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, max_abs_err=max(errs.values()))
+                             bound_by=b_by, max_abs_err=max(errs.values()),
+                             peak_mb=peak, stages_ms=stages)
         log(line)
+        del args, h0
     num, den = out["numerator"], out["denominator"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "peak_mb", "stages_ms")
     return dict(
         name="ssd_chunked", route="cuda",
         source="src/repro_torch/kernels/ssm_scan/csrc/ssd_chunked.cu",
@@ -427,8 +499,10 @@ def ssd_kernel_phase(card: dict, dev) -> dict:
         max_abs_err=num["max_abs_err"], ms=num["ms"],
         plain_ms=num["plain_ms"], bound_ms=num["bound_ms"],
         bound_by=num["bound_by"], library_ms=None,
-        denominator={k: den[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "max_abs_err")})
+        peak_mb=num["peak_mb"], stages_ms=num["stages_ms"],
+        denominator={k: den[k] for k in keys},
+        one_request={what: {k: out[f"{what}, one request"][k] for k in keys}
+                     for what in ("numerator", "denominator")})
 
 
 def flash_work(B: int, Sq: int, H: int, K: int, hd: int, kv_len: int,
@@ -789,7 +863,7 @@ def paged_stablelm(dev, spec: dict) -> dict:
 
 
 # kernel name fragment -> the kind the time splits report it under
-KERNEL_KINDS = (("flash_", "flash_fwd"), ("ssd_chunked", "ssd_chunked"),
+KERNEL_KINDS = (("flash_", "flash_fwd"), ("ssd_", "ssd_chunked"),
                 ("gemm", "products"), ("xmma", "products"))
 
 

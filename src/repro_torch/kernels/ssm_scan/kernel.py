@@ -1,19 +1,25 @@
 """The CUDA kernel of the chunked SSD scan, its build and its wrapper.
 
 ``csrc/ssd_chunked.cu`` is the hand-written Hopper (``sm_90a``) port of
-the Pallas kernel ``repro/kernels/ssm_scan/kernel.py::ssm_scan_kernel``:
-one CTA per (head-folded row, tile of state columns) carries its slice
-of the float32 state through the row's chunks in shared memory (the
-source's header gives the design and its bound).  Unlike the TPU kernel
-it starts from an optional ``h0`` and returns the final state, which
-prefill hands to the decode cache.  It is built and loaded by
-:mod:`..cuda_build`.
+the Pallas kernel ``repro/kernels/ssm_scan/kernel.py::ssm_scan_kernel``,
+redesigned as a chunk-parallel scan: every (row, chunk) at once computes
+its in-chunk cumsum, its masked C B^T and its chunk state, a pass
+carries the float32 state across the chunks, and a last stage adds the
+carried state's part of ``y``; the products run on the tensor cores in
+3xTF32 (the source's header gives the design and its bound).  P = 1,
+mLSTM's denominator, runs the recurrence form instead, one thread a
+state row.  Unlike the TPU kernel it starts from an optional ``h0`` and
+returns the final state, which prefill hands to the decode cache.  It
+is built and loaded by :mod:`..cuda_build`.
 
 :func:`ssm_scan_kernel` takes CUDA tensors only (``ops.ssm_scan``
 sends CPU tensors to the plain chunked version): it checks device,
-dtype, shapes and contiguity, allocates the outputs, launches on the
-current stream, checks the launch and adds one to its ``launches``
-count.  Nothing falls back: a failed build or launch raises.
+dtype, shapes and contiguity, allocates the outputs and the scratch
+with ``torch.empty``, launches on the current stream and adds one to
+its ``launches`` count.  One call makes four CUDA launches (intra,
+states, pass, out), three at P = 1 (vec_states, pass, vec_out), each
+checked with ``cudaGetLastError``; the count says calls, not CUDA
+launches.  Nothing falls back: a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -28,12 +34,10 @@ from ..cuda_build import I64, INT, P
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 cuda_build.register("ssd_chunked", CSRC / "ssd_chunked.cu", {
-    "ssd_chunked_f32": ([P] * 8 + [I64, I64, INT, INT, INT, P],
+    "ssd_chunked_f32": ([P] * 11 + [I64, I64, INT, INT, INT, P],
                         ctypes.c_int),
-    "ssd_chunked_smem_bytes": ([INT, INT], ctypes.c_longlong),
 })
 MAX_CHUNK = 128               # the kernel's largest chunk
-MAX_SMEM = 232_448            # shared memory one block may use on Hopper
 
 
 def _check(x, loga, dt, Bm, Cm, h0) -> None:
@@ -77,18 +81,24 @@ def ssm_scan_kernel(x: torch.Tensor, loga: torch.Tensor, dt: torch.Tensor,
     if Q < 1 or Q > MAX_CHUNK or S % Q:
         raise ValueError(f"ssm_scan_kernel: chunk {Q} must be 1..{MAX_CHUNK}"
                          f" and divide the sequence {S}")
-    smem = cuda_build.library("ssd_chunked").ssd_chunked_smem_bytes(Pw, N)
-    if smem > MAX_SMEM:
-        raise ValueError(f"ssm_scan_kernel: N={N} needs {smem} bytes of "
-                         f"shared memory, more than {MAX_SMEM}")
-    y = torch.empty_like(x)
-    h = torch.empty((BH, N, Pw), dtype=torch.float32, device=x.device)
+    NC = S // Q
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    y, h = torch.empty_like(x), empty(BH, N, Pw)
+    # scratch: the chunks' cumsums, their states (then the states that
+    # enter them) and, off the P = 1 path, their masked C B^T, growing
+    # with S: the states take BH S N P / Q x 4 bytes.  Freed on
+    # return while the launches may still run: the caching allocator hands
+    # the memory only to work queued after them on this same stream
+    cum, states = empty(BH, S), empty(BH, NC, N, Pw)
+    M = empty(BH, NC, Q, Q) if Pw > 1 else None
     cuda_build.launch(
         "ssd_chunked", "ssd_chunked_f32", x.device,
-        P(x.data_ptr()), P(loga.data_ptr()), P(dt.data_ptr()),
-        P(Bm.data_ptr()), P(Cm.data_ptr()),
-        P(None if h0 is None else h0.data_ptr()), P(y.data_ptr()),
-        P(h.data_ptr()), BH, S, Pw, N, Q)
+        *(P(None if t is None else t.data_ptr())
+          for t in (x, loga, dt, Bm, Cm, h0, y, h, cum, states, M)),
+        BH, S, Pw, N, Q)
     ssm_scan_kernel.launches += 1
     return y, h
 

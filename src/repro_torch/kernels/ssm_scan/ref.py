@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the SSD scan, in the kernel's head-folded
 layout: x (BH, S, P), loga and dt (BH, S, 1), Bm and Cm (BH, S, N), the
-state h (BH, N, P), float32 state whatever the input type.
+state h (BH, N, P).  Sums and state are float32, or float64 for float64
+inputs (the oracle the kernel's accuracy is measured against).
 
 * :func:`ssd_ref` — one recurrence step per token, the oracle
   (``repro/models/ssm.py::ssd_ref`` with one head per row).
@@ -16,12 +17,16 @@ from typing import Optional, Tuple
 import torch
 
 
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The type of the sums and the state: float32 at least."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _state(h0: Optional[torch.Tensor], BH: int, N: int, P: int,
            like: torch.Tensor) -> torch.Tensor:
     if h0 is None:
-        return torch.zeros((BH, N, P), dtype=torch.float32,
-                           device=like.device)
-    return h0.float()
+        return torch.zeros((BH, N, P), dtype=_acc(like), device=like.device)
+    return h0.to(_acc(like))
 
 
 def ssd_ref(x, loga, dt, Bm, Cm, h0=None
@@ -30,13 +35,14 @@ def ssd_ref(x, loga, dt, Bm, Cm, h0=None
     BH, S, P = x.shape
     N = Bm.shape[-1]
     h = _state(h0, BH, N, P, x)
+    acc = h.dtype
     ys = []
     for t in range(S):
-        a = torch.exp(loga[:, t]).float()                   # (BH, 1)
-        upd = torch.einsum("bd,bp->bdp", Bm[:, t].float(),
-                           (x[:, t] * dt[:, t]).float())
+        a = torch.exp(loga[:, t]).to(acc)                   # (BH, 1)
+        upd = torch.einsum("bd,bp->bdp", Bm[:, t].to(acc),
+                           (x[:, t] * dt[:, t]).to(acc))
         h = h * a[..., None] + upd
-        ys.append(torch.einsum("bd,bdp->bp", Cm[:, t].float(), h))
+        ys.append(torch.einsum("bd,bdp->bp", Cm[:, t].to(acc), h))
     return torch.stack(ys, dim=1).to(x.dtype), h
 
 
@@ -51,16 +57,17 @@ def ssd_chunked_ref(x, loga, dt, Bm, Cm, *, chunk: int = 128,
     if Q < 1 or S % Q:
         raise ValueError(f"sequence {S} not divisible by chunk {Q}")
     NC = S // Q
-    xw = (x * dt).float().reshape(BH, NC, Q, P)
-    Bc = Bm.float().reshape(BH, NC, Q, N)
-    Cc = Cm.float().reshape(BH, NC, Q, N)
-    cum = torch.cumsum(loga.float().reshape(BH, NC, Q), dim=2)
+    acc = _acc(x)
+    xw = (x * dt).to(acc).reshape(BH, NC, Q, P)
+    Bc = Bm.to(acc).reshape(BH, NC, Q, N)
+    Cc = Cm.to(acc).reshape(BH, NC, Q, N)
+    cum = torch.cumsum(loga.to(acc).reshape(BH, NC, Q), dim=2)
 
     # within a chunk: masked decay matrix.  Select, never multiply by the
     # mask: above the diagonal exp may be inf, and inf * 0 is nan
     dd = cum[..., :, None] - cum[..., None, :]              # (BH,NC,t,s)
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(tri, torch.exp(dd), torch.zeros((), device=x.device))
+    decay = torch.where(tri, torch.exp(dd), dd.new_zeros(()))
     CB = torch.einsum("bnqd,bnsd->bnqs", Cc, Bc)
     y_intra = torch.einsum("bnqs,bnsp->bnqp", CB * decay, xw)
 

@@ -171,11 +171,18 @@ def assert_scaled_close(got, want, tol):
 
 
 # the reference kernel tests' four cases, mLSTM's numerator and
-# denominator scans, and widths that end inside a tile
+# denominator scans, and widths that end inside a tile; then one chunk
+# (S = chunk), 128 chunks for the pass, one row, the P = 1 path at N 384,
+# 45 and 600 (two groups of a thread's state rows), P 70 and N 45 inside
+# every 128-wide tile, an odd P (single stores, a scalar pass), the
+# one-request serve shape and more than 65535 (row, chunk) pairs
 @pytest.mark.parametrize("BH,S,chunk,P,N", [
     (3, 32, 8, 16, 8), (3, 64, 16, 8, 16), (3, 16, 16, 32, 8),
     (3, 48, 8, 16, 16), (8, 256, 128, 384, 384), (8, 256, 128, 1, 384),
-    (2, 40, 20, 70, 45)])
+    (2, 40, 20, 70, 45), (4, 128, 128, 384, 384), (2, 1024, 8, 64, 48),
+    (1, 256, 128, 384, 384), (2, 1024, 128, 1, 384), (3, 256, 64, 1, 45),
+    (2, 256, 128, 1, 600), (2, 256, 128, 70, 45), (2, 96, 32, 3, 45),
+    (4, 1024, 128, 384, 384), (520, 128, 1, 3, 8), (520, 128, 1, 1, 8)])
 def test_ssd_kernel_vs_plain(cuda_device, BH, S, chunk, P, N):
     x, loga, dt, Bm, Cm, h0 = ssd_inputs(BH, S, P, N, S * P + N)
     for state in (None, h0):
@@ -201,12 +208,37 @@ def test_ssd_kernel_strong_decay_stays_finite(cuda_device):
     assert_scaled_close(got_y, want, 1e-4)
 
 
+@pytest.mark.parametrize("P", [384, 1])
+def test_ssd_kernel_is_float32_accurate(cuda_device, P):
+    """The 3xTF32 products (and, at P = 1, the recurrence) keep float32
+    accuracy: against a float64 run of the plain version, y and the final
+    state at most 8x as far as the plain float32 version on the CPU.  One
+    TF32 pass keeps 10 mantissa bits and lands hundreds of times as
+    far."""
+    x, loga, dt, Bm, Cm, h0 = ssd_inputs(2, 512, P, 384, 19)
+    args = (x, loga, dt, Bm, Cm)
+    want = ssd_chunked_ref(*(t.double() for t in args), chunk=128,
+                           h0=h0.double())
+    plain = ssd_chunked_ref(*args, chunk=128, h0=h0)
+    got = ssm_scan(*(t.to(cuda_device) for t in args), chunk=128,
+                   h0=h0.to(cuda_device))
+    for what, g, p, w in zip(("y", "h_final"), got, plain, want):
+        err_plain = float((p.double() - w).abs().max())
+        err = float((g.cpu().double() - w).abs().max())
+        assert err <= 8 * err_plain, (what, err, err_plain)
+
+
 def test_ssd_wrapper_counts_and_rejects(cuda_device):
-    x, loga, dt, Bm, Cm, _ = (t.to(cuda_device)
-                              for t in ssd_inputs(2, 32, 8, 8, 1))
-    before = ssm_scan_kernel.launches
-    ssm_scan(x, loga, dt, Bm, Cm, chunk=8)
-    assert ssm_scan_kernel.launches == before + 1
+    x, loga, dt, Bm, Cm, h0 = (t.to(cuda_device)
+                               for t in ssd_inputs(2, 32, 8, 8, 1))
+    ones = torch.ones_like(x[..., :1])
+    # one call, one count, however many CUDA launches it makes
+    for args, kw in (((x, loga, dt, Bm, Cm), {}),
+                     ((x, loga, dt, Bm, Cm), {"h0": h0}),
+                     ((ones, loga, dt, Bm, Cm), {})):
+        before = ssm_scan_kernel.launches
+        ssm_scan(*args, chunk=8, **kw)
+        assert ssm_scan_kernel.launches == before + 1
     with pytest.raises(TypeError):
         ssm_scan_kernel(x.double(), loga, dt, Bm, Cm, chunk=8)
     with pytest.raises(ValueError):

@@ -99,6 +99,25 @@ def test_strong_decay_stays_finite():
     close(y, want)
 
 
+def test_plain_versions_sum_float64_inputs_in_float64():
+    """Float64 inputs keep float64 sums and state (the oracle the GPU
+    kernel's float32 accuracy is measured against): the chunked and the
+    sequential forms agree far below float32's rounding, and the
+    float32 run lands within float32's own error of them."""
+    arrs = folded_inputs(2, 64, 8, 16, 9)
+    h0 = np.random.default_rng(10).standard_normal((2, 16, 8))
+    f64 = [t(a).double() for a in arrs]
+    y, h = ssd_chunked_ref(*f64, chunk=16, h0=t(h0))
+    ry, rh = ssd_ref(*f64, h0=t(h0))
+    assert y.dtype == h.dtype == torch.float64
+    close(y, ry, 1e-12)
+    close(h, rh, 1e-12)
+    y32, h32 = ssd_chunked_ref(*map(t, arrs), chunk=16, h0=t(h0).float())
+    assert y32.dtype == h32.dtype == torch.float32
+    err = float((y32.double() - y).abs().max())
+    assert 0 < err < 1e-5, err
+
+
 def test_rows_do_not_share_state():
     """Permuting rows permutes outputs (tests/test_kernels_ssm.py)."""
     arrs = folded_inputs(4, 16, 8, 4, 2)
