@@ -25,6 +25,21 @@ batched sweep engine, ``run_sweep``:
 * closed loop ``fig_scale_1m``: 1000 groups x 1000 threads = 1M clients,
   5M ops, checked against the committed ``fig_scale_1m`` rows.
 
+The end of that path, ``figures``: the figure runners of
+``repro_torch.sim.experiments`` at ``benchmarks/run.py``'s arguments.
+``fig13_request_rate`` (two open-loop sweeps, two ``maxplus_chunked``
+launches, checked), ``fig_sweep`` (one) and ``fig_scale(engine="sweep")``
+(``maxplus_seq`` every round) run on the card, each held <= 1e-9 per
+value to the same runner on the CPU and, within ``benchmarks/run.py
+--check``'s band (5%), to its committed ``fig13.*``, ``fig_sweep.*`` and
+``fig_scale.*`` rows of ``BENCH_sweep.json``.  ``fig_failover``,
+``fig_handoff``, ``fig_scenarios`` (each on every engine its file has
+rows for), ``fig_rebalance`` and ``fig_trace`` run in virtual time on
+the host and are held key by key, in the same band, to the row dicts of
+``BENCH_failover.json``, ``BENCH_handoff.json``, ``BENCH_scenarios.json``,
+``BENCH_rebalance.json`` and ``BENCH_trace.json``.  Wall times are
+printed and never checked.
+
 The LLM serving path, ``repro_torch.launch.serve.serve``:
 
 * ``serve_xlstm``: full-width xlstm-125m (random weights from seed 0,
@@ -128,6 +143,32 @@ PAGED_SLOTS, PAGED_SEQ, PAGED_SHARED = 4096, 1056, 256
 # head widths at which the flash phase also times the prefill, beside
 # stablelm-3b's 80
 FLASH_WIDTHS = (72, 128)
+# the figures path: repro_torch.sim.experiments' runners at the arguments
+# benchmarks/run.py gives them.  Sweep-backed, on the card: (row family in
+# BENCH_sweep.json, runner, arguments, its kernel, that kernel's launches
+# or None for at least one)
+SWEEP_FIGURES = (
+    ("fig13", "fig13_request_rate",
+     dict(rates=(100, 200, 400), duration=10.0), "maxplus_chunked", 2),
+    ("fig_sweep", "fig_sweep", {}, "maxplus_chunked", 1),
+    ("fig_scale", "fig_scale", dict(engine="sweep", ops_per_client=1000),
+     "maxplus_seq", None),
+)
+# host-side virtual time: (runner, arguments, committed rows, the decimals
+# run.py rounds their floats to); a runner taking ``engine`` runs once per
+# engine the committed file has rows for
+HOST_FIGURES = (
+    ("fig_failover", dict(ops_per_client=1000), "BENCH_failover.json", 4),
+    ("fig_handoff", dict(ops_per_client=1000), "BENCH_handoff.json", 4),
+    ("fig_scenarios", dict(ops_per_client=1000), "BENCH_scenarios.json", 4),
+    ("fig_rebalance", {}, "BENCH_rebalance.json", 4),
+    ("fig_trace", dict(ops_per_client=1000), "BENCH_trace.json", 6),
+)
+# benchmarks/run.py --check's band: |got - committed| <= max(rtol |committed|,
+# 1e-6); keys naming host-dependent numbers are printed, never checked
+BENCH_RTOL = 0.05
+UNGATED = ("walltime", "speedup", "_us", "per_device_scaling", "roofline",
+           "kernel.", "compile")
 
 
 def log(*parts) -> None:
@@ -193,50 +234,165 @@ def rel_err(got, want) -> float:
     return float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
 
 
+def sweep_close(got, want, what: str) -> float:
+    """``got`` within ``SWEEP_RTOL`` of ``want`` (relative, absolute below
+    1), nan where ``want`` is nan; returns the largest error."""
+    import numpy as np
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(g.shape == w.shape and np.array_equal(np.isnan(g), np.isnan(w)),
+          f"{what}: shape or nan pattern differs")
+    ok = ~np.isnan(w)
+    err = float(np.max(np.abs(g[ok] - w[ok]) / np.maximum(1, np.abs(w[ok])),
+                       initial=0.0))
+    check(err <= SWEEP_RTOL, f"{what}: rel err {err}")
+    return err
+
+
 def columns_close(got, want, what: str) -> float:
     """Every column of sweep result ``got`` within ``SWEEP_RTOL`` of
-    ``want`` (relative, absolute below 1), nan where ``want`` is nan;
-    returns the largest error."""
-    import numpy as np
+    ``want``; returns the largest error."""
     check(set(got.columns) == set(want.columns), f"{what}: column names")
+    return max(sweep_close(got.columns[k], w, f"{what} column {k}")
+               for k, w in want.columns.items())
+
+
+def is_number(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def gated(key: str) -> bool:
+    return not any(tag in key for tag in UNGATED)
+
+
+def rows_close(got: list, want: list, what: str) -> float:
+    """Figure rows ``got`` against ``want`` key by key: numbers within
+    ``SWEEP_RTOL``, anything else equal; ungated keys skipped.  Returns
+    the largest error."""
+    check(len(got) == len(want), f"{what}: {len(got)} rows, {len(want)}")
     worst = 0.0
-    for k, w in want.columns.items():
-        g = got.columns[k]
-        check(g.shape == w.shape and np.array_equal(np.isnan(g),
-                                                    np.isnan(w)),
-              f"{what} column {k}: shape or nan pattern differs")
-        ok = ~np.isnan(w)
-        err = float(np.max(np.abs(g[ok] - w[ok])
-                           / np.maximum(1, np.abs(w[ok])), initial=0.0))
-        check(err <= SWEEP_RTOL, f"{what} column {k}: rel err {err}")
-        worst = max(worst, err)
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(list(g) == list(w), f"{what} row {i}: keys differ")
+        for k in filter(gated, w):
+            if is_number(w[k]):
+                worst = max(worst, sweep_close(g[k], w[k],
+                                               f"{what} row {i} {k}"))
+            else:
+                check(g[k] == w[k], f"{what} row {i} {k}: {g[k]!r} vs "
+                      f"{w[k]!r}")
     return worst
 
 
-def committed_rows(path: str) -> dict:
-    """``BENCH_sweep.json``'s rows of ``path`` that a sweep column gives:
-    metric -> (committed value, tolerance).  The p99 row rides in the p95
-    row's ``derived`` field as ``p99=...``."""
+def committed_rows(family: str) -> dict:
+    """``BENCH_sweep.json``'s rows of ``family`` (the name's first dotted
+    part): each row's value under its name, and each ``key=value`` of its
+    ``derived`` field under ``name:key``, as text."""
     rows = json.loads((ROOT / "BENCH_sweep.json").read_text())["rows"]
     found = {}
     for r in rows:
-        pre, _, metric = r["name"].partition(".")
-        if pre != path:
+        if r["name"].partition(".")[0] != family:
             continue
-        pairs = [(metric, r["value"])] + [
-            tuple(kv.split("=", 1)) for kv in r["derived"].split(";")
-            if kv.startswith("p99=")]
-        for m, text in pairs:
-            m = "p99_latency_ms" if m == "p99" else m
-            if m in ROW_COLUMNS:
-                decimals = len(text.partition(".")[2])
-                found[m] = (float(text),
-                            max(ROW_TOL, 0.5 * 10.0 ** -decimals))
+        found[r["name"]] = r["value"]
+        for kv in filter(None, r["derived"].split(";")):
+            key, _, text = kv.partition("=")
+            found[f"{r['name']}:{key}"] = text
+    return found
+
+
+def closed_path_rows(path: str) -> dict:
+    """The committed rows of closed path ``path`` that a sweep column
+    gives: metric -> (committed value, tolerance).  The p99 row rides in
+    the p95 row's ``derived`` field as ``p99=...``."""
+    found = {}
+    for name, text in committed_rows(path).items():
+        metric = name.partition(".")[2]
+        metric = "p99_latency_ms" if metric.endswith(":p99") else metric
+        if metric in ROW_COLUMNS:
+            decimals = len(text.partition(".")[2])
+            found[metric] = (float(text),
+                             max(ROW_TOL, 0.5 * 10.0 ** -decimals))
     need = {"write_latency_ms", "p95_latency_ms", "p99_latency_ms",
             "throughput_ops"}
     check(need <= set(found), f"BENCH_sweep.json lacks {path} rows "
           f"{sorted(need - set(found))}")
     return found
+
+
+def in_band(got, want) -> tuple:
+    """(within benchmarks/run.py --check's band, relative deviation)."""
+    dev = abs(got - want)
+    return (dev <= max(BENCH_RTOL * abs(want), 1e-6),
+            dev / max(abs(want), 1e-12))
+
+
+def sweep_figure_rows(family: str, rows: list) -> dict:
+    """A sweep-backed figure's rows named as benchmarks/run.py writes them
+    into BENCH_sweep.json (``name`` and ``name:key`` for a number of its
+    ``derived`` field), unrounded."""
+    out = {}
+    if family == "fig13":
+        for r in rows:
+            n = f"fig13.latency_ms.{r['setting']}.r{r['rate']}"
+            out.update({n: r["latency_ms"], f"{n}:p95": r["p95_ms"],
+                        f"{n}:p99": r["p99_ms"]})
+    elif family == "fig_sweep":
+        for r in rows:
+            if r["rate"] not in (200.0, 800.0) or r["groups"] != 3 \
+                    or r["n_records"] != 10_000:
+                continue
+            n = (f"fig_sweep.latency_ms.g{int(100 * r['p_global'])}"
+                 f".r{int(r['rate'])}")
+            out.update({n: 1e3 * r["mean_latency"],
+                        f"{n}:p95": 1e3 * r["p95_latency"],
+                        f"{n}:p99": 1e3 * r["p99_latency"],
+                        f"{n}:tput": r["throughput"]})
+    else:
+        (r,) = rows
+        n = "fig_scale."
+        out = {n + "write_latency_ms": r["write_latency_ms"],
+               **{f"{n}write_latency_ms:{k}": r[k]
+                  for k in ("groups", "clients", "ops", "mean_hops")},
+               n + "global_write_latency_ms": r["global_write_latency_ms"],
+               n + "p95_latency_ms": r["p95_latency_ms"],
+               n + "p95_latency_ms:p99": r["p99_latency_ms"],
+               n + "throughput_ops": r["throughput_ops"],
+               n + "walltime_s": r["walltime_s"]}
+    return out
+
+
+def band_check(got: dict, committed: dict, what: str) -> tuple:
+    """``got`` (name -> number) against ``committed`` (name -> text) in
+    benchmarks/run.py --check's band, the same names on both sides;
+    returns (gated names, names in band, largest relative deviation)."""
+    check(set(got) == set(committed), f"{what}: row names differ from the "
+          f"committed ones: {sorted(set(got) ^ set(committed))}")
+    names = [n for n in committed if gated(n)]
+    bands = {n: in_band(got[n], float(committed[n])) for n in names}
+    return (len(names), sum(ok for ok, _ in bands.values()),
+            max((d for _, d in bands.values()), default=0.0))
+
+
+def host_rows_check(got: list, committed: list, decimals: int,
+                    what: str) -> tuple:
+    """Figure rows against their committed row dicts, key by key minus
+    ungated keys, floats rounded as benchmarks/run.py rounds them:
+    numbers in the --check band, anything else equal.  Returns (rows,
+    rows in band, largest relative deviation)."""
+    check(len(got) == len(committed),
+          f"{what}: {len(got)} rows, {len(committed)} committed")
+    ok_rows, worst = 0, 0.0
+    for g, w in zip(got, committed):
+        check(set(g) == set(w), f"{what}: row keys {sorted(set(g) ^ set(w))}")
+        row_ok = True
+        for k in filter(gated, w):
+            v = round(g[k], decimals) if isinstance(g[k], float) else g[k]
+            if is_number(w[k]):
+                ok, dev = in_band(v, w[k])
+                worst = max(worst, dev)
+            else:
+                ok = v == w[k]
+            row_ok &= bool(ok)
+        ok_rows += row_ok
+    return len(committed), ok_rows, worst
 
 
 def kernel_phase(card: dict, dev) -> dict:
@@ -864,6 +1020,8 @@ def paged_stablelm(dev, spec: dict) -> dict:
 
 # kernel name fragment -> the kind the time splits report it under
 KERNEL_KINDS = (("flash_", "flash_fwd"), ("ssd_", "ssd_chunked"),
+                ("maxplus_chunked", "maxplus_chunked"),
+                ("maxplus_seq", "maxplus_seq"),
                 ("gemm", "products"), ("xmma", "products"))
 
 
@@ -1078,6 +1236,106 @@ def serve_vs_cpu(dev, spec: dict) -> None:
         f"bound")
 
 
+def run_figures(dev, wrappers: dict) -> dict:
+    """The figures path: each sweep-backed runner of
+    ``repro_torch.sim.experiments`` on the card, then each host-side one
+    (once per engine its committed file has rows for), at
+    ``benchmarks/run.py``'s arguments.  Per figure: its rows, the
+    kernels' launches inside it and its wall seconds."""
+    import inspect
+    import torch
+    from repro_torch.sim import experiments
+    out = {}
+
+    def run(tag, fn, **kw):
+        before = {n: w.launches for n, w in wrappers.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = fn(**kw)
+        torch.cuda.synchronize()
+        out[tag] = dict(rows=rows, wall_s=time.perf_counter() - t0,
+                        launches={n: w.launches - before[n]
+                                  for n, w in wrappers.items()})
+
+    for family, runner, kw, _, _ in SWEEP_FIGURES:
+        run(family, getattr(experiments, runner), **kw, device=dev)
+    for runner, kw, path, _ in HOST_FIGURES:
+        fn = getattr(experiments, runner)
+        if "engine" not in inspect.signature(fn).parameters:
+            run(runner, fn, **kw)
+            continue
+        committed = json.loads((ROOT / path).read_text())["rows"]
+        for engine in dict.fromkeys(r["engine"] for r in committed):
+            run(f"{runner}.{engine}", fn, **kw, engine=engine)
+    return out
+
+
+def check_figures(dev, figs: dict) -> dict:
+    """Hold the figures path's rows: the sweep-backed ones to the same
+    runners on the CPU (``SWEEP_RTOL``) and, like the host-side ones, to
+    their committed rows in ``benchmarks/run.py --check``'s band.  The
+    sweep-backed runners run once more, warm, under torch.profiler for
+    the device's busy time and the scan kernels' share of it.  Logs one
+    line a figure; returns the device busy ms of each sweep-backed one."""
+    from repro_torch.sim import experiments
+    busy_ms = {}
+    for family, runner, kw, kernel, want in SWEEP_FIGURES:
+        fig = figs[family]
+        n = fig["launches"][kernel]
+        check(n == want if want is not None else n > 0,
+              f"figures {family}: {n} {kernel} launches, expected "
+              f"{want if want is not None else 'at least one'}")
+        fn = getattr(experiments, runner)
+        cpu = fn(**kw, device="cpu")
+        err = rows_close(fig["rows"], cpu, f"figures {family} vs the CPU")
+        gated_n, ok_n, dev_max = band_check(
+            sweep_figure_rows(family, fig["rows"]), committed_rows(family),
+            f"figures {family}")
+        busy, kernels, kinds = device_busy(lambda: fn(**kw, device=dev))
+        scan_ms = kinds.get(kernel, 0.0)
+        walls = sorted({r["walltime_s"] for r in fig["rows"]
+                        if "walltime_s" in r})
+        log(f"figures {family}: {runner}({kw}) on the card: "
+            f"{len(fig['rows'])} rows, {ok_n} of {gated_n} committed "
+            f"BENCH_sweep.json values in band (rtol {BENCH_RTOL}), largest "
+            f"deviation {dev_max:.3e}; every value within {err:.3e} of the "
+            f"CPU run; launches maxplus_chunked="
+            f"{fig['launches']['maxplus_chunked']}, maxplus_seq="
+            f"{fig['launches']['maxplus_seq']}; wall {fig['wall_s']:.3f} s"
+            + (f" (rows' walltime_s {walls})" if walls else "")
+            + ("; device busy not measured (the profiler saw no kernels)"
+               if busy is None else
+               f"; warm rerun under torch.profiler: {kernels} kernels, "
+               f"device busy {busy:.3f} ms ({busy / 1e3 / fig['wall_s']:.1%}"
+               f" of the untraced wall), {kernel} {scan_ms:.4f} ms "
+               f"({scan_ms / busy:.1%} of busy)"))
+        check(ok_n == gated_n, f"figures {family}: {gated_n - ok_n} "
+              "committed values out of band")
+        busy_ms[family] = busy
+    for runner, _, path, decimals in HOST_FIGURES:
+        tags = [t for t in figs if t.partition(".")[0] == runner]
+        rows = [r for t in tags for r in figs[t]["rows"]]
+        committed = json.loads((ROOT / path).read_text())["rows"]
+        n, ok_n, dev_max = host_rows_check(rows, committed, decimals,
+                                           f"figures {runner}")
+        wall = sum(figs[t]["wall_s"] for t in tags)
+        launches = {k: sum(figs[t]["launches"][k] for t in tags)
+                    for k in ("maxplus_chunked", "maxplus_seq")}
+        log(f"figures {runner} ({', '.join(tags)}) on the host: {n} rows, "
+            f"{ok_n} in band of {path} (rtol {BENCH_RTOL}, floats rounded "
+            f"to {decimals} decimals as committed), largest deviation "
+            f"{dev_max:.3e}; launches maxplus_chunked="
+            f"{launches['maxplus_chunked']}, maxplus_seq="
+            f"{launches['maxplus_seq']}; wall {wall:.3f} s")
+        if runner == "fig_rebalance":
+            log("figures fig_rebalance post-shift p99 ms: " + ", ".join(
+                f"{r['mode']} ({r['engine']}) {r['post_p99_ms']:.3f}"
+                for r in rows))
+        check(ok_n == n, f"figures {runner}: {n - ok_n} rows out of band "
+              f"of {path}")
+    return busy_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1163,7 +1421,7 @@ def main() -> int:
     # ---------------------------------------------------- closed loop
     infos = {"open_64": gpu.info}
     for path, groups, threads, ops, cache_keys in CLOSED_PATHS:
-        rows = committed_rows(path)
+        rows = closed_path_rows(path)
         pt = SweepPoint(p_global=0.5, groups=groups, group_size=3,
                         threads=threads, ops=ops)
         svc = (None if cache_keys is None
@@ -1229,6 +1487,19 @@ def main() -> int:
             f"launch, bound {b_ms:.4f} ms ({b_by}), matches its plain "
             f"version; x {by_path[name][path]} launches = {share:.1%} of the "
             f"path's device time")
+
+    # ------------------------------------------ figures: the path's end
+    # (check_figures holds each figure's own launches: maxplus_seq's too)
+    figs = drive("figures", "maxplus_chunked",
+                 lambda: run_figures(dev, wrappers))
+    busy_ms = check_figures(dev, figs)
+    wall = sum(f["wall_s"] for f in figs.values())
+    sweep_wall = sum(figs[f]["wall_s"] for f in busy_ms)
+    busy = sum(b or 0.0 for b in busy_ms.values())
+    log(f"figures: {len(figs)} runs, wall {wall:.3f} s, of which the "
+        f"sweep-backed figures {sweep_wall:.3f} s (device busy {busy:.3f} "
+        f"ms under torch.profiler) and the host figures "
+        f"{wall - sweep_wall:.3f} s")
 
     # ------------------------------------------------ serving, full width
     cfg = get_config(SERVE["arch"])
