@@ -5,12 +5,14 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 and holds each against its plain PyTorch version on the card, and times
-it: the max-plus scans at (1000, 8192), the SSD scan at the serve path's
+it: the max-plus scans at (1000, 8192), the SSD scan at the serve paths'
 own scans (mLSTM's numerator and denominator, and a strong decay that
-must stay finite; ``y`` and the final state; each stage's time from
-torch.profiler, the peak device memory of a call, and one request's
-scans too), flash attention at the dense serve path's prefill (causal)
-and decode (one query over the cache's valid prefix) shapes, paged
+must stay finite; Mamba2's at zamba2-1.2b's 512 heads of N = P = 64
+from the zero state prefill passes; ``y`` and the final state; each
+stage's time from torch.profiler, the peak device memory of a call, and
+one request's mLSTM scans too), flash attention at the dense and hybrid
+serve paths' prefill (causal) and decode (one query over the cache's
+valid prefix) shapes (heads of 80 and of 64), paged
 decode attention at stablelm-3b's decode and mixtral-8x7b's GQA shape
 (timed; also against flash attention over the same tokens held
 contiguously), granite-20b's MQA shape and pages of 16 and 12 tokens.
@@ -52,6 +54,13 @@ The LLM serving path, ``repro_torch.launch.serve.serve``:
   weights drawn on the card), the same requests, with the flash kernel's
   launches checked (32 per prefill, 32 per decode step) and the same
   split (layers against the LM head, attention against the products);
+* ``serve_zamba2``: full-width zamba2-1.2b (38 Mamba2 layers, d_model
+  2048, one shared attention block after every 6 of them, 6
+  applications and a 2-layer tail; 1.17B random weights drawn on the
+  card), the same requests, with both kernels' launches checked (the
+  SSD kernel 38 a prefill and none in decode, flash 6 a prefill and 6 a
+  decode step) and the same split (Mamba2 layers against the shared
+  block);
 * ``paged_stablelm``: the EdgeKV page pool's data plane at full width:
   the same stablelm-3b batch through ``prefill`` and 31 decode steps,
   its pages registered as ``serve`` registers them, each layer's KV
@@ -62,7 +71,9 @@ The LLM serving path, ``repro_torch.launch.serve.serve``:
 * for each model, the card's serve run against a CPU run handed the
   card's weights, teacher-forced with the card's tokens, logits within
   ``LOGIT_TOL``: xlstm-125m whole at 2 requests x 256 tokens,
-  stablelm-3b at full width cut to 2 layers, 2 requests x 128 tokens.
+  stablelm-3b at full width cut to 2 layers and zamba2-1.2b at full
+  width cut to 7 (one shared-block application and one tail layer), 2
+  requests x 128 tokens.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path and read just after, and a path that never launched its
@@ -124,11 +135,15 @@ FLASH_TOL = 2e-5
 SERVE = dict(arch="xlstm-125m", requests=8, prompt_len=1024,
              shared_prefix_len=256, gen_len=32, seed=0)
 SERVE_DENSE = dict(SERVE, arch="stablelm-3b")
+SERVE_HYBRID = dict(SERVE, arch="zamba2-1.2b")
 SERVE_VS_CPU = dict(arch="xlstm-125m", requests=2, prompt_len=256,
                     shared_prefix_len=64, gen_len=8, seed=0)
 SERVE_DENSE_VS_CPU = dict(arch="stablelm-3b", layers=2, requests=2,
                           prompt_len=128, shared_prefix_len=32, gen_len=8,
                           seed=0)
+# zamba2-1.2b cut to 7 layers: one group of 6 with the shared block after
+# it, and one tail layer with none
+SERVE_HYBRID_VS_CPU = dict(SERVE_DENSE_VS_CPU, arch="zamba2-1.2b", layers=7)
 # the paged kernel alone: 8 sequences of 1025 to 1055 tokens whose first
 # 256 are a shared prefix, in a pool of 4096 slots (serve's); (case, query
 # heads, KV heads, head width, page, timed).  stablelm-3b's decode and
@@ -499,15 +514,22 @@ def kernel_phase(card: dict, dev) -> dict:
 def ssd_inputs(BH: int, S: int, P: int, N: int, seed: int, dev,
                decay=None):
     """Seeded scan inputs with the reference kernel tests'
-    distributions: normal x, log decay -softplus(normal) (or ``decay``),
-    sigmoid step, B and C normal / sqrt(N)."""
+    distributions: normal x, log decay -softplus(normal) (or the
+    constant ``decay``), sigmoid step, B and C normal / sqrt(N).  With
+    ``decay="mamba2"``, Mamba2's own step and decay at A_log = 0: dt =
+    softplus(normal) and log decay -dt (about -100 nats a chunk of
+    128)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((BH, S, P))
-    loga = (-np.logaddexp(0.0, rng.standard_normal((BH, S, 1)))
-            if decay is None else np.full((BH, S, 1), decay))
-    dt = 1.0 / (1.0 + np.exp(-rng.standard_normal((BH, S, 1))))
+    if decay == "mamba2":
+        dt = np.logaddexp(0.0, rng.standard_normal((BH, S, 1)))
+        loga = -dt
+    else:
+        loga = (-np.logaddexp(0.0, rng.standard_normal((BH, S, 1)))
+                if decay is None else np.full((BH, S, 1), decay))
+        dt = 1.0 / (1.0 + np.exp(-rng.standard_normal((BH, S, 1))))
     Bm = rng.standard_normal((BH, S, N)) / np.sqrt(N)
     Cm = rng.standard_normal((BH, S, N)) / np.sqrt(N)
     return [torch.from_numpy(a).float().to(dev)
@@ -574,31 +596,39 @@ def call_peak_mb(fn, dev) -> float:
 
 
 def ssd_kernel_phase(card: dict, dev) -> dict:
-    """The SSD kernel at the serve path's scans, BH = 8 requests x 4
-    heads, S = 1024, N = 384, Q = 128: mLSTM's numerator (P = 384, from
-    zero and from a random state) and denominator (P = 1), and a strong
-    decay (60 nats a token) whose masked exponentials overflow; y and
+    """The SSD kernel at the serve paths' scans, S = 1024, Q = 128.
+    xlstm-125m's, BH = 8 requests x 4 heads, N = 384: mLSTM's numerator
+    (P = 384, from zero and from a random state) and denominator (P =
+    1), and a strong decay (60 nats a token) whose masked exponentials
+    overflow.  zamba2-1.2b's Mamba2, BH = 8 requests x 64 heads, N = P =
+    64, at its own decay and from the zero state prefill passes.  y and
     h_final against the plain chunked version on the same inputs, then
-    timed beside it and its bound (and, for the numerator, whose
-    products run in 3xTF32, the tensor cores' figure), with each stage's
-    time from torch.profiler and the peak device memory of one call
-    above its inputs; the numerator and denominator again at one
-    request (BH 4)."""
+    timed beside it and its bound (and, where the products run in
+    3xTF32, the tensor cores' figure), with each stage's time from
+    torch.profiler and the peak device memory of one call above its
+    inputs; mLSTM's numerator and denominator again at one request (BH
+    4)."""
     import torch
     from repro_torch.kernels.ssm_scan import ssd_chunked_ref, ssm_scan
 
-    S, N, Q = 1024, 384, 128
+    S, Q = 1024, 128
     out = {}
-    for case, BH, P, decay, with_h0 in (
-            ("numerator", 32, 384, None, False),
-            ("numerator+h0", 32, 384, None, True),
-            ("denominator", 32, 1, None, False),
-            ("strong-decay", 32, 384, -60.0, False),
-            ("numerator, one request", 4, 384, None, False),
-            ("denominator, one request", 4, 1, None, False)):
+    # (case, BH, P, N, decay, initial state, timed)
+    for case, BH, P, N, decay, h0_kind, timed in (
+            ("numerator", 32, 384, 384, None, None, True),
+            ("numerator+h0", 32, 384, 384, None, "random", False),
+            ("denominator", 32, 1, 384, None, None, True),
+            ("strong-decay", 32, 384, 384, -60.0, None, False),
+            ("numerator, one request", 4, 384, 384, None, None, True),
+            ("denominator, one request", 4, 1, 384, None, None, True),
+            ("mamba2", 512, 64, 64, "mamba2", "zero", True)):
         args = ssd_inputs(BH, S, P, N, 3, dev, decay)
-        h0 = (torch.randn((BH, N, P), generator=torch.Generator(
-            dev).manual_seed(4), device=dev) if with_h0 else None)
+        h0 = None
+        if h0_kind == "zero":
+            h0 = torch.zeros((BH, N, P), device=dev)
+        elif h0_kind == "random":
+            h0 = torch.randn((BH, N, P), device=dev,
+                             generator=torch.Generator(dev).manual_seed(4))
         y, h = ssm_scan(*args, chunk=Q, h0=h0)
         py, ph = ssd_chunked_ref(*args, chunk=Q, h0=h0)
         errs = {}
@@ -611,17 +641,21 @@ def ssd_kernel_phase(card: dict, dev) -> dict:
                   f"{bound}")
             errs[what] = err
         del y, h, py, ph
-        line = (f"ssd_chunked {case} (BH {BH}, S {S}, P {P}, N {N}, Q {Q}):"
+        line = (f"ssd_chunked {case} (BH {BH}, S {S}, P {P}, N {N}, Q {Q}, "
+                f"h0 {h0_kind or 'none'}):"
                 f" max_abs_err vs plain y {errs['y']:.3e}, h_final "
                 f"{errs['h_final']:.3e} (tol {SSD_TOL} x max(1, |plain|))")
-        if "+h0" not in case and "strong" not in case:
-            nbytes, ops = ssd_work(BH, S, P, N, Q, False)
+        if timed:
+            nbytes, ops = ssd_work(BH, S, P, N, Q, h0 is not None)
             b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
-            ms = time_ms(lambda: ssm_scan(*args, chunk=Q))
-            plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=Q),
+            ms = time_ms(lambda: ssm_scan(*args, chunk=Q, h0=h0))
+            plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=Q,
+                                                       h0=h0),
                                reps=1, windows=3)
-            stages = stage_ms(lambda: ssm_scan(*args, chunk=Q), SSD_STAGES)
-            peak = call_peak_mb(lambda: ssm_scan(*args, chunk=Q), dev)
+            stages = stage_ms(lambda: ssm_scan(*args, chunk=Q, h0=h0),
+                              SSD_STAGES)
+            peak = call_peak_mb(lambda: ssm_scan(*args, chunk=Q, h0=h0),
+                                dev)
             # P > 1 runs its products in 3xTF32: three TF32 passes of the
             # chunked form's operations; P = 1 runs the recurrence on the
             # CUDA cores
@@ -657,6 +691,7 @@ def ssd_kernel_phase(card: dict, dev) -> dict:
         bound_by=num["bound_by"], library_ms=None,
         peak_mb=num["peak_mb"], stages_ms=num["stages_ms"],
         denominator={k: den[k] for k in keys},
+        mamba2={k: out["mamba2"][k] for k in keys},
         one_request={what: {k: out[f"{what}, one request"][k] for k in keys}
                      for what in ("numerator", "denominator")})
 
@@ -674,19 +709,20 @@ def flash_work(B: int, Sq: int, H: int, K: int, hd: int, kv_len: int,
 
 
 def flash_kernel_phase(card: dict, dev) -> dict:
-    """The flash kernel at the dense serve path's shapes, stablelm-3b's 32
-    heads of 80 for 8 requests: prefill (1024 tokens, causal) and decode
-    (one query over a 1056-slot cache whose valid length, a device
-    int32, is 1025 and 1055); against the plain chunked version and the
-    naive oracle on the same inputs, then timed beside the plain version,
-    its bound and torch's scaled_dot_product_attention (float32, the
-    yardstick; the port never calls it)."""
+    """The flash kernel at the serve paths' shapes, 32 heads for 8
+    requests: stablelm-3b's heads of 80 and zamba2-1.2b's shared block's
+    heads of 64.  Prefill (1024 tokens, causal) and decode (one query
+    over a 1056-slot cache whose valid length, a device int32, is 1025,
+    and for stablelm-3b also 1055); against the plain chunked version
+    and the naive oracle on the same inputs, then timed beside the plain
+    version, its bound and torch's scaled_dot_product_attention
+    (float32, the yardstick; the port never calls it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_chunked_ref, flash_attention_ref, flash_fwd)
 
-    B, S, H, hd, S_max = 8, 1024, 32, 80, 1056
+    B, S, H, S_max = 8, 1024, 32, 1056
     gen = torch.Generator(dev).manual_seed(5)
 
     def randn(*shape):
@@ -695,58 +731,66 @@ def flash_kernel_phase(card: dict, dev) -> dict:
     def fold(t):                     # (B, S, H, hd) -> (B * H, S, hd)
         return t.transpose(1, 2).reshape(B * H, t.shape[1], t.shape[-1])
 
-    q, k, v = randn(B, S, H, hd), randn(B, S, H, hd), randn(B, S, H, hd)
-    q1, kc, vc = randn(B, 1, H, hd), randn(B, S_max, H, hd), randn(
-        B, S_max, H, hd)
-    cases = {"prefill": (lambda: flash_fwd(q, k, v, causal=True),
-                         (q, k, v), dict(causal=True), S, True)}
-    for n in (S + 1, S_max - 1):
-        n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
-        cases[f"decode kv_len {n}"] = (
-            lambda n_dev=n_dev: flash_fwd(q1, kc, vc, causal=False,
-                                          kv_len=n_dev),
-            (q1, kc, vc), dict(causal=False, seq_k=n_dev), n, False)
+    def cases_at(hd: int, kv_lens: tuple) -> dict:
+        q, k, v = randn(B, S, H, hd), randn(B, S, H, hd), randn(B, S, H, hd)
+        q1, kc, vc = randn(B, 1, H, hd), randn(B, S_max, H, hd), randn(
+            B, S_max, H, hd)
+        cases = {"prefill": (lambda: flash_fwd(q, k, v, causal=True),
+                             (q, k, v), dict(causal=True), S, True)}
+        for n in kv_lens:
+            n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
+            cases[f"decode kv_len {n}"] = (
+                lambda n_dev=n_dev: flash_fwd(q1, kc, vc, causal=False,
+                                              kv_len=n_dev),
+                (q1, kc, vc), dict(causal=False, seq_k=n_dev), n, False)
+        return cases
+
     out = {}
-    for case, (run, (a, b, c), kw, kv_len, causal) in cases.items():
-        got = fold(run())
-        check(bool(torch.isfinite(got).all()), f"flash {case}: not finite")
-        folded = [fold(t) for t in (a, b, c)]
-        errs = {}
-        for what, plain_fn in (("plain", flash_attention_chunked_ref),
-                               ("naive", flash_attention_ref)):
-            want = plain_fn(*folded, **kw)
-            err = float((got - want).abs().max())
-            bound = FLASH_TOL * max(1.0, float(want.abs().max()))
-            check(err <= bound, f"flash {case}: max_abs_err vs {what} {err}"
-                  f" > {bound}")
-            errs[what] = err
-        del want, got
-        nbytes, ops = flash_work(B, a.shape[1], H, H, hd, kv_len, causal)
-        b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
-        ms = time_ms(run)
-        plain_ms = time_ms(lambda: flash_attention_chunked_ref(*folded, **kw),
-                           reps=1, windows=3)
-        qt = a.transpose(1, 2)
-        kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (b, c))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal))
-        # the tile configuration's products run in 3xTF32: three TF32
-        # passes of the same operations on the tensor cores
-        tc_ms = 3 * ops / card["tf32"] * 1e3
-        log(f"flash_fwd {case} (B {B}, Sq {a.shape[1]}, Skv {b.shape[1]}, "
-            f"H {H}, hd {hd}): max_abs_err vs plain {errs['plain']:.3e}, "
-            f"vs naive {errs['naive']:.3e} (tol {FLASH_TOL} x max(1, "
-            f"|plain|)); {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-            f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
-            f"{ops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s "
-            f"achieved), 3xTF32 on the tensor cores {tc_ms:.4f} ms "
-            f"(3 x ops at {card['tf32'] / 1e12:.0f} TFLOP/s), plain "
-            f"{plain_ms:.3f} ms, library {lib_ms:.4f} ms "
-            f"(scaled_dot_product_attention, float32); kernel / library "
-            f"{ms / lib_ms:.3f}")
-        out[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, max_abs_err=errs["plain"],
-                         library_ms=lib_ms)
+    for model, hd, kv_lens in (("stablelm-3b", 80, (S + 1, S_max - 1)),
+                               ("zamba2-1.2b", 64, (S + 1,))):
+        for case, (run, (a, b, c), kw, kv_len, causal) in cases_at(
+                hd, kv_lens).items():
+            got = fold(run())
+            check(bool(torch.isfinite(got).all()),
+                  f"flash {model} {case}: not finite")
+            folded = [fold(t) for t in (a, b, c)]
+            errs = {}
+            for what, plain_fn in (("plain", flash_attention_chunked_ref),
+                                   ("naive", flash_attention_ref)):
+                want = plain_fn(*folded, **kw)
+                err = float((got - want).abs().max())
+                bound = FLASH_TOL * max(1.0, float(want.abs().max()))
+                check(err <= bound, f"flash {model} {case}: max_abs_err vs "
+                      f"{what} {err} > {bound}")
+                errs[what] = err
+            del want, got
+            nbytes, ops = flash_work(B, a.shape[1], H, H, hd, kv_len, causal)
+            b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
+            ms = time_ms(run)
+            plain_ms = time_ms(
+                lambda: flash_attention_chunked_ref(*folded, **kw),
+                reps=1, windows=3)
+            qt = a.transpose(1, 2)
+            kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (b, c))
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+            # the tile configuration's products run in 3xTF32: three TF32
+            # passes of the same operations on the tensor cores
+            tc_ms = 3 * ops / card["tf32"] * 1e3
+            log(f"flash_fwd {model} {case} (B {B}, Sq {a.shape[1]}, Skv "
+                f"{b.shape[1]}, H {H}, hd {hd}): max_abs_err vs plain "
+                f"{errs['plain']:.3e}, vs naive {errs['naive']:.3e} (tol "
+                f"{FLASH_TOL} x max(1, |plain|)); {ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}: {ops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB; {ops / ms / 1e9:.2f} TFLOP/s, "
+                f"{nbytes / ms / 1e9:.3f} TB/s achieved), 3xTF32 on the "
+                f"tensor cores {tc_ms:.4f} ms (3 x ops at "
+                f"{card['tf32'] / 1e12:.0f} TFLOP/s), plain {plain_ms:.3f} "
+                f"ms, library {lib_ms:.4f} ms (scaled_dot_product_attention,"
+                f" float32); kernel / library {ms / lib_ms:.3f}")
+            out[hd, case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, max_abs_err=errs["plain"],
+                                 library_ms=lib_ms)
     # the prefill at other head widths, outside the main path: 72 is
     # zero-filled to the 80-wide instance, 128 takes 64 queries a CTA
     for w in FLASH_WIDTHS:
@@ -770,12 +814,13 @@ def flash_kernel_phase(card: dict, dev) -> dict:
             f"{b_ms:.4f} ms ({b_by}), 3xTF32 on the tensor cores "
             f"{3 * ops / card['tf32'] * 1e3:.4f} ms, library {lib_ms:.4f} "
             f"ms; kernel / library {ms / lib_ms:.3f}")
-    pre, dec = out["prefill"], out[f"decode kv_len {S + 1}"]
+    decode = f"decode kv_len {S + 1}"
     return dict(
         name="flash_fwd", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:87",
-        launches=0, **pre, decode=dec)
+        launches=0, **out[80, "prefill"], decode=out[80, decode],
+        hd64={"prefill": out[64, "prefill"], "decode": out[64, decode]})
 
 
 def paged_tables(B: int, page: int, rng) -> tuple:
@@ -1048,14 +1093,14 @@ def device_busy(fn) -> tuple:
     return sum(kinds.values()), len(kern), kinds
 
 
-def serve_breakdown(dev, spec: dict, groups: dict, kernel: str) -> dict:
+def serve_breakdown(dev, spec: dict, groups: dict, kernels: tuple) -> dict:
     """Where a warm prefill and a warm decode step of ``spec``'s shape go:
     host wall per group of layers (``groups``: name -> the model's layer
-    list; synchronized forward hooks), the rest (embedding, final norm,
-    LM head), the launches of ``kernel`` per call, and the device's busy
-    share and kernel time by kind from torch.profiler.  Random weights
-    from the spec's seed, drawn on the card, and random prompt tokens,
-    as serve."""
+    list, or one layer called several times; synchronized forward
+    hooks), the rest (embedding, final norm, LM head), the launches of
+    each of ``kernels`` per call, and the device's busy share and kernel
+    time by kind from torch.profiler.  Random weights from the spec's
+    seed, drawn on the card, and random prompt tokens, as serve."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import KERNELS
@@ -1084,11 +1129,14 @@ def serve_breakdown(dev, spec: dict, groups: dict, kernel: str) -> dict:
 
     hooks = []
     for group, attr in groups.items():
-        for mod in getattr(params, attr):
+        mods = getattr(params, attr)
+        for mod in (mods if isinstance(mods, torch.nn.ModuleList)
+                    else [mods]):
             hooks += [mod.register_forward_pre_hook(pre),
                       mod.register_forward_hook(post(group))]
-    wrapper = KERNELS[kernel]
-    wrapper.launches = 0
+    wrappers = {k: KERNELS[k] for k in kernels}
+    for w in wrappers.values():
+        w.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     prefill(params, cfg, toks, max_len=max_len)
@@ -1097,17 +1145,19 @@ def serve_breakdown(dev, spec: dict, groups: dict, kernel: str) -> dict:
     for h in hooks:
         h.remove()
     out = dict(prefill_s=total, groups=spent,
-               prefill_launches=wrapper.launches)
+               prefill_launches={k: w.launches for k, w in wrappers.items()})
     decode_step(params, cfg, cache, tok)                   # warm-up
     torch.cuda.synchronize()
-    wrapper.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     steps = 5
     t0 = time.perf_counter()
     for _ in range(steps):
         decode_step(params, cfg, cache, tok)
     torch.cuda.synchronize()
     out["decode_step_s"] = (time.perf_counter() - t0) / steps
-    out["decode_launches"] = wrapper.launches / steps
+    out["decode_launches"] = {k: w.launches / steps
+                              for k, w in wrappers.items()}
     for what, fn in (("prefill",
                       lambda: prefill(params, cfg, toks, max_len=max_len)),
                      ("decode", lambda: decode_step(params, cfg, cache,
@@ -1125,10 +1175,11 @@ def log_breakdown(path: str, bd: dict) -> None:
     rest = bd["prefill_s"] - sum(bd["groups"].values())
     log(f"{path} warm prefill {bd['prefill_s']:.4f} s: " + ", ".join(parts)
         + f", embedding, final norm and LM head {rest:.4f} s "
-        f"({rest / bd['prefill_s']:.1%}); kernel launches "
-        f"{bd['prefill_launches']} a prefill; warm decode step "
-        f"{bd['decode_step_s'] * 1e3:.3f} ms, kernel launches "
-        f"{bd['decode_launches']:g} a step")
+        f"({rest / bd['prefill_s']:.1%}); kernel launches a prefill "
+        + ", ".join(f"{k} {n}" for k, n in bd["prefill_launches"].items())
+        + f"; warm decode step {bd['decode_step_s'] * 1e3:.3f} ms, kernel "
+        f"launches a step "
+        + ", ".join(f"{k} {n:g}" for k, n in bd["decode_launches"].items()))
     # the profiler slows the host many times over, not the kernels: the
     # busy share is taken against the untraced warm wall time
     for what, wall in (("prefill", bd["prefill_s"]),
@@ -1147,12 +1198,11 @@ def log_breakdown(path: str, bd: dict) -> None:
                                   key=lambda kv: -kv[1]))))
 
 
-def serve_path(dev, spec: dict, kernel: str, per_prefill: int,
-               per_step: int) -> dict:
+def serve_path(dev, spec: dict, launches: dict) -> dict:
     """Serve ``spec`` at full width on the card and check what comes out:
     token and logit shapes, finite logits, greedy tokens, the page pool,
-    and ``kernel``'s launches, ``per_prefill`` in the prefill and
-    ``per_step`` in each decode step."""
+    and each kernel's launches (``launches``: kernel -> (per prefill, per
+    decode step))."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1163,10 +1213,11 @@ def serve_path(dev, spec: dict, kernel: str, per_prefill: int,
     cfg = get_config(spec["arch"])
     B, G = spec["requests"], spec["gen_len"]
     name = f"serve_{spec['arch'].split('-')[0]}"
-    want = {"prefill": per_prefill, "decode": per_step * (G - 1)}
-    check(res["launches"][kernel] == want,
-          f"{name}: {kernel} launches {res['launches'][kernel]}, expected "
-          f"{want}")
+    want = {k: {"prefill": pre, "decode": step * (G - 1)}
+            for k, (pre, step) in launches.items()}
+    for k, w in want.items():
+        check(res["launches"][k] == w,
+              f"{name}: {k} launches {res['launches'][k]}, expected {w}")
     check(res["tokens"].shape == (B, G), f"{name}: token shape")
     check(res["logits"].shape == (B, G, cfg.vocab_size),
           f"{name}: logit shape")
@@ -1187,8 +1238,9 @@ def serve_path(dev, spec: dict, kernel: str, per_prefill: int,
         f"prefill {res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s "
         f"({G - 1} steps, {res['decode_s'] / (G - 1) * 1e3:.3f} ms each), "
         f"{res['tok_per_s']:.1f} tok/s; peak device memory {peak:.3f} GiB; "
-        f"{kernel} launches {res['launches'][kernel]} (expected {want}); "
-        f"pool {res['pool']}; generated[0][:8] "
+        + "; ".join(f"{k} launches {res['launches'][k]} (expected {w})"
+                    for k, w in want.items())
+        + f"; pool {res['pool']}; generated[0][:8] "
         f"{res['tokens'][0][:8].tolist()}")
     return res
 
@@ -1387,7 +1439,7 @@ def main() -> int:
                 "paged_decode": paged_decode}
     by_path: dict = {name: {} for name in wrappers}
 
-    def drive(path: str, needs: str, fn):
+    def drive(path: str, needs: tuple, fn):
         for w in wrappers.values():
             w.launches = 0
         torch.cuda.synchronize()
@@ -1397,14 +1449,15 @@ def main() -> int:
             by_path[name][path] = w.launches
         log(f"{path}: launches " + ", ".join(
             f"{n}={w.launches}" for n, w in wrappers.items()))
-        check(wrappers[needs].launches > 0,
-              f"{path}: {needs} was never launched")
+        for name in needs:
+            check(wrappers[name].launches > 0,
+                  f"{path}: {name} was never launched")
         return res
 
     # ---------------------------------------------------- open loop
     # the card's run first, so it plans with cold host memos
     grid = sweep_grid()
-    gpu = drive("open_64", "maxplus_chunked",
+    gpu = drive("open_64", ("maxplus_chunked",),
                 lambda: run_sweep(grid, device=dev))
     cpu = run_sweep(grid, device="cpu")
     check(gpu.columns["mean_latency"].shape == (64,), "open loop points")
@@ -1427,7 +1480,7 @@ def main() -> int:
         svc = (None if cache_keys is None
                else ServiceParams(page_cache_keys=cache_keys))
         torch.cuda.reset_peak_memory_stats(dev)
-        res = drive(path, "maxplus_seq", lambda: run_sweep(
+        res = drive(path, ("maxplus_seq",), lambda: run_sweep(
             [pt], loop="closed", seed=0, service=svc, device=dev))
         ref = None
         if path == "fig_scale":
@@ -1490,7 +1543,7 @@ def main() -> int:
 
     # ------------------------------------------ figures: the path's end
     # (check_figures holds each figure's own launches: maxplus_seq's too)
-    figs = drive("figures", "maxplus_chunked",
+    figs = drive("figures", ("maxplus_chunked",),
                  lambda: run_figures(dev, wrappers))
     busy_ms = check_figures(dev, figs)
     wall = sum(f["wall_s"] for f in figs.values())
@@ -1505,14 +1558,14 @@ def main() -> int:
     cfg = get_config(SERVE["arch"])
     n_mlstm = cfg.n_layers - len(cfg.slstm_layers)
     # numerator + denominator scan per mLSTM layer, in prefill only
-    drive("serve_xlstm", "ssd_chunked",
-          lambda: serve_path(dev, SERVE, "ssd_chunked", 2 * n_mlstm, 0))
+    drive("serve_xlstm", ("ssd_chunked",),
+          lambda: serve_path(dev, SERVE, {"ssd_chunked": (2 * n_mlstm, 0)}))
     k3 = kernels["ssd_chunked"]
     scan_s = n_mlstm * (k3["ms"] + k3["denominator"]["ms"]) / 1e3
     bd = serve_breakdown(dev, SERVE, {"mLSTM": "mlstm_layers",
                                       "sLSTM": "slstm_layers"},
-                         "ssd_chunked")
-    check(bd["prefill_launches"] == 2 * n_mlstm,
+                         ("ssd_chunked",))
+    check(bd["prefill_launches"]["ssd_chunked"] == 2 * n_mlstm,
           f"serve_xlstm breakdown: {bd['prefill_launches']} SSD launches")
     log_breakdown("serve_xlstm", bd)
     log(f"serve_xlstm: of the warm prefill, the SSD kernel {scan_s:.4f} s "
@@ -1523,16 +1576,17 @@ def main() -> int:
     dcfg = get_config(SERVE_DENSE["arch"])
     L = dcfg.n_layers
     # one attention call a layer, in prefill and in each decode step
-    drive("serve_stablelm", "flash_fwd",
-          lambda: serve_path(dev, SERVE_DENSE, "flash_fwd", L, L))
+    drive("serve_stablelm", ("flash_fwd",),
+          lambda: serve_path(dev, SERVE_DENSE, {"flash_fwd": (L, L)}))
     check(by_path["flash_fwd"]["serve_stablelm"]
           == L * SERVE_DENSE["gen_len"],
           f"serve_stablelm: {by_path['flash_fwd']['serve_stablelm']} flash "
           f"launches, expected {L} x {SERVE_DENSE['gen_len']} passes")
     torch.cuda.empty_cache()
     bd = serve_breakdown(dev, SERVE_DENSE, {"decoder layers": "layers"},
-                         "flash_fwd")
-    check(bd["prefill_launches"] == L and bd["decode_launches"] == L,
+                         ("flash_fwd",))
+    check(bd["prefill_launches"] == {"flash_fwd": L}
+          and bd["decode_launches"] == {"flash_fwd": L},
           f"serve_stablelm breakdown: {bd['prefill_launches']} flash "
           f"launches a prefill, {bd['decode_launches']} a decode step")
     log_breakdown("serve_stablelm", bd)
@@ -1545,7 +1599,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------ the page pool's data plane, full width
-    drive("paged_stablelm", "paged_decode",
+    drive("paged_stablelm", ("paged_decode",),
           lambda: paged_stablelm(dev, SERVE_DENSE))
     check(by_path["paged_decode"]["paged_stablelm"] == L,
           f"paged_stablelm: {by_path['paged_decode']['paged_stablelm']} "
@@ -1557,9 +1611,47 @@ def main() -> int:
         f"ms of K4 over the serve path's contiguous cache")
     torch.cuda.empty_cache()
 
+    # ----------------------------- the hybrid family, full width
+    hcfg = get_config(SERVE_HYBRID["arch"])
+    Lh = hcfg.n_layers
+    n_app = Lh // hcfg.shared_attn_every
+    both = ("ssd_chunked", "flash_fwd")
+    # one Mamba2 scan a layer in prefill (decode takes a recurrence step
+    # in plain torch), one attention call a shared-block application in
+    # prefill and in each decode step; the tail layers have none
+    drive("serve_zamba2", both, lambda: serve_path(
+        dev, SERVE_HYBRID, {"ssd_chunked": (Lh, 0),
+                            "flash_fwd": (n_app, n_app)}))
+    check(by_path["flash_fwd"]["serve_zamba2"]
+          == n_app * SERVE_HYBRID["gen_len"],
+          f"serve_zamba2: {by_path['flash_fwd']['serve_zamba2']} flash "
+          f"launches, expected {n_app} x {SERVE_HYBRID['gen_len']} passes")
+    torch.cuda.empty_cache()
+    bd = serve_breakdown(dev, SERVE_HYBRID, {"Mamba2 layers": "layers",
+                                             "shared attention":
+                                             "shared_attn"}, both)
+    check(bd["prefill_launches"] == {"ssd_chunked": Lh, "flash_fwd": n_app}
+          and bd["decode_launches"] == {"ssd_chunked": 0,
+                                        "flash_fwd": n_app},
+          f"serve_zamba2 breakdown: launches {bd['prefill_launches']} a "
+          f"prefill, {bd['decode_launches']} a decode step")
+    log_breakdown("serve_zamba2", bd)
+    k3m, k4h = kernels["ssd_chunked"]["mamba2"], k4["hd64"]
+    log(f"serve_zamba2: from the kernel phase, the SSD kernel is {Lh} x "
+        f"{k3m['ms']:.4f} ms = {Lh * k3m['ms'] / 1e3:.4f} s and attention "
+        f"{n_app} x {k4h['prefill']['ms']:.4f} ms = "
+        f"{n_app * k4h['prefill']['ms'] / 1e3:.4f} s of the warm prefill "
+        f"({(Lh * k3m['ms'] + n_app * k4h['prefill']['ms']) / 1e3 / bd['prefill_s']:.1%}"
+        f" together); attention {n_app} x {k4h['decode']['ms']:.4f} ms = "
+        f"{n_app * k4h['decode']['ms']:.3f} ms of a decode step "
+        f"({n_app * k4h['decode']['ms'] / 1e3 / bd['decode_step_s']:.1%})")
+    del bd
+    torch.cuda.empty_cache()
+
     # ------------------------- the card's serve runs against the CPU's
     serve_vs_cpu(dev, SERVE_VS_CPU)
     serve_vs_cpu(dev, SERVE_DENSE_VS_CPU)
+    serve_vs_cpu(dev, SERVE_HYBRID_VS_CPU)
 
     for name, k in kernels.items():
         k["launches"] = sum(by_path[name].values())

@@ -1,5 +1,5 @@
-"""The LLM side stack's models in PyTorch (the dense and SSM families so
-far)."""
+"""The LLM side stack's models in PyTorch (the dense, hybrid and SSM
+families so far)."""
 from .model import (LanguageModel, ModelDims, dims_from_params, init_params,
                     padded_vocab)
 from .serving import decode_step, init_cache, prefill

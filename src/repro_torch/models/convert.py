@@ -6,7 +6,9 @@ leading layer axis (``layers``, ``mlstm_layers``) and individually placed
 layers as a list (``slstm_layers``); the port keeps one module per
 layer.  So ``tree["layers"]["attn"]["wq"][i]`` is ``layers.<i>.attn.wq``
 and ``tree["slstm_layers"][i]["slstm"]["w_i"]`` is
-``slstm_layers.<i>.slstm.w_i``.  The leaves are numpy arrays (the tests
+``slstm_layers.<i>.slstm.w_i``; a single layer, the hybrid's shared
+block, is one tree and one module (``tree["shared_attn"]["attn"]["wq"]``
+is ``shared_attn.attn.wq``).  The leaves are numpy arrays (the tests
 hand the reference's arrays over as numpy).
 """
 from __future__ import annotations

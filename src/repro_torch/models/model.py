@@ -4,10 +4,12 @@
 whose ``state_dict`` keys follow the reference's parameter tree
 (``embed``, ``final_norm``, ``lm_head``, ``layers.<i>.attn.wq``,
 ``mlstm_layers.<i>.mlstm.wq``, ...; :mod:`.convert` maps one onto the
-other).  Two families are ported: the dense decoder (a stack of
-:class:`DenseBlock`, stablelm-3b) and the SSM family (xLSTM: a stack of
-mLSTM layers with sLSTM layers at their configured indices); every
-other family raises ``NotImplementedError``.
+other).  Three families are ported: the dense decoder (a stack of
+:class:`DenseBlock`, stablelm-3b), the hybrid (zamba2-1.2b: a stack of
+:class:`~.ssm.Mamba2Block` and one shared-weight :class:`DenseBlock`
+applied after every ``shared_attn_every`` of them) and the SSM family
+(xLSTM: a stack of mLSTM layers with sLSTM layers at their configured
+indices); every other family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, HYBRID, MOE,
                                       SSM, VLM)
 from .attention import attn_apply, attn_init, decode_attention
 from .layers import apply_norm, dense_init, mlp_apply, mlp_init
-from .ssm import MLSTMBlock, SLSTMBlock
+from .ssm import Mamba2Block, MLSTMBlock, SLSTMBlock
 
 
 @dataclass(frozen=True)
@@ -32,18 +34,18 @@ class ModelDims:
 
 
 # the ROADMAP.md item (queue 1 item 6) each unported family waits for
-NOT_PORTED = {HYBRID: "the hybrid slice", MOE: "the MoE slice",
-              VLM: "the audio and VLM families",
+NOT_PORTED = {MOE: "the MoE slice", VLM: "the audio and VLM families",
               AUDIO: "the audio and VLM families"}
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in (DENSE, SSM):
+    if cfg.family not in (DENSE, HYBRID, SSM):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
             f"PyTorch yet (ROADMAP.md, queue 1 item 6: "
             f"{NOT_PORTED.get(cfg.family, 'not planned')}); only the "
-            f"{DENSE!r} (stablelm-3b) and {SSM!r} (xlstm-125m) families are")
+            f"{DENSE!r} (stablelm-3b), {HYBRID!r} (zamba2-1.2b) and "
+            f"{SSM!r} (xlstm-125m) families are")
 
 
 def model_dims(cfg: ArchConfig) -> ModelDims:
@@ -116,6 +118,11 @@ class LanguageModel(nn.Module):
                 DenseBlock(cfg, dims, gen, dtype)
                 for _ in range(cfg.n_layers))
             return
+        if cfg.family == HYBRID:
+            self.layers = nn.ModuleList(
+                Mamba2Block(cfg, gen, dtype) for _ in range(cfg.n_layers))
+            self.shared_attn = DenseBlock(cfg, model_dims(cfg), gen, dtype)
+            return
         n_m = cfg.n_layers - len(cfg.slstm_layers)
         self.mlstm_layers = nn.ModuleList(
             MLSTMBlock(cfg, gen, dtype) for _ in range(n_m))
@@ -164,13 +171,15 @@ def _logits(params: LanguageModel, cfg: ArchConfig,
 
 
 def dims_from_params(params: LanguageModel, cfg: ArchConfig) -> ModelDims:
-    """Head counts as initialized, from the dense family's ``wq``/``wk``
-    widths (head padding included).  The SSM family has no attention and
-    no head padding, so they are the config's."""
+    """Head counts as initialized, from the ``wq``/``wk`` widths of the
+    dense family's layers or the hybrid's shared block (head padding
+    included).  The SSM family has no attention and no head padding, so
+    they are the config's."""
     require_ported(cfg)
     if cfg.family == SSM:
         return ModelDims(cfg.n_heads, cfg.n_kv_heads, cfg.hd)
-    attn = params.layers[0].attn
+    attn = (params.shared_attn.attn if cfg.family == HYBRID
+            else params.layers[0].attn)
     hd = cfg.hd
     return ModelDims(attn["wq"].shape[-1] // hd, attn["wk"].shape[-1] // hd,
                      hd)

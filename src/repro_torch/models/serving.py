@@ -1,26 +1,35 @@
 """Serving entry points: cache construction, prefill, single-token
-decode — the counterparts of ``repro/models/serving.py`` for the dense
-and SSM families.
+decode — the counterparts of ``repro/models/serving.py`` for the dense,
+hybrid and SSM families.
 
 Cache keys and shapes are the reference's (B = batch, L = layers):
 
   dense:  k, v (L, B, S, K, hd)           float32; S = max_len, or the
                                           sliding window (a ring buffer)
+  hybrid: conv (L, B, ck-1, C)            Mamba2's last ck-1 conv inputs
+                                          (ck = conv width, C = d_in +
+                                          2 N)
+          ssm (L, B, H, N, 64)            Mamba2's SSD states (float32)
+          ak, av (L // k, B, S, K, hd)    the shared attention block's
+                                          K/V at each of its L // k
+                                          applications (k =
+                                          shared_attn_every)
   SSM:    m_num (Lm, B*nh, 1, hd2, hd2)   mLSTM numerator states (float32)
           m_den (Lm, B*nh, 1, hd2, 1)     mLSTM denominator states
           s_h, s_c, s_n (Ls, B, D)        sLSTM states
           (nh = heads, hd2 = 2 * d_model / nh, Lm / Ls = mLSTM / sLSTM
           layers)
-  both:   len ()                          tokens seen (int32, on the
+  all:    len ()                          tokens seen (int32, on the
                                           model's device)
 
 :func:`prefill` returns a new cache.  :func:`decode_step` returns a new
-cache dict; the SSM states in it are new tensors and the one it was
-given stays as it was, but the dense K/V caches are written **in
-place** (one slot a step of caches that are gigabytes at full width),
-so the returned dict shares them with the given one.  The valid length
-stays on the device: a decode step reads it without a host sync.  Both
-run without autograd.
+cache dict.  The SSM family's states in it are new tensors and the
+cache it was given stays as it was; the dense and hybrid caches are
+written **in place** (one slot a step of K/V caches that are gigabytes
+at full width, and the hybrid's per-layer states beside them), so the
+returned dict shares them with the given one.  The valid length stays
+on the device: a decode step reads it without a host sync.  Both run
+without autograd.
 """
 from __future__ import annotations
 
@@ -28,9 +37,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, DENSE
+from repro_torch.configs.base import ArchConfig, DENSE, HYBRID
 from .model import (LanguageModel, _embed, _logits, _slstm_runs,
                     dims_from_params)
+from .ssm import HEAD_P
 
 Cache = Dict[str, Any]
 
@@ -42,31 +52,42 @@ def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
 def init_cache(params: LanguageModel, cfg: ArchConfig, batch: int,
                max_len: Optional[int] = None) -> Cache:
     """An empty cache of ``batch`` sequences on the model's device.  The
-    dense family's K/V hold ``max_len`` tokens (the window under
-    sliding-window attention); the SSM state does not grow with the
-    sequence, and the family ignores ``max_len``."""
+    K/V of the dense family and of the hybrid's shared block hold
+    ``max_len`` tokens (the window under sliding-window attention); the
+    recurrent states do not grow with the sequence, and the SSM family
+    ignores ``max_len``."""
     dims = dims_from_params(params, cfg)   # raises for unported families
-    dev = params.embed.device
-    if cfg.family == DENSE:
+    dev, dtype = params.embed.device, params.embed.dtype
+    L, D = cfg.n_layers, cfg.d_model
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    c = {"len": zeros(dtype=torch.int32)}
+    if cfg.family in (DENSE, HYBRID):
         if max_len is None:
-            raise ValueError("init_cache: the dense family needs max_len")
-        shape = (cfg.n_layers, batch, cache_len_for(cfg, max_len), dims.K,
-                 dims.hd)
-        return {"len": torch.zeros((), dtype=torch.int32, device=dev),
-                "k": torch.zeros(shape, dtype=params.embed.dtype,
-                                 device=dev),
-                "v": torch.zeros(shape, dtype=params.embed.dtype,
-                                 device=dev)}
-    D, nh = cfg.d_model, cfg.n_heads
+            raise ValueError(f"init_cache: the {cfg.family!r} family needs "
+                             f"max_len")
+        S = cache_len_for(cfg, max_len)
+    if cfg.family == DENSE:
+        c["k"] = zeros(L, batch, S, dims.K, dims.hd, dtype=dtype)
+        c["v"] = zeros(L, batch, S, dims.K, dims.hd, dtype=dtype)
+        return c
+    if cfg.family == HYBRID:
+        d_in = cfg.ssm_expand * D
+        n_app = L // cfg.shared_attn_every
+        c["conv"] = zeros(L, batch, cfg.ssm_conv - 1,
+                          d_in + 2 * cfg.ssm_state, dtype=dtype)
+        c["ssm"] = zeros(L, batch, d_in // HEAD_P, cfg.ssm_state, HEAD_P)
+        c["ak"] = zeros(n_app, batch, S, dims.K, dims.hd, dtype=dtype)
+        c["av"] = zeros(n_app, batch, S, dims.K, dims.hd, dtype=dtype)
+        return c
+    nh = cfg.n_heads
     hd2 = 2 * D // nh
-    Lm = cfg.n_layers - len(cfg.slstm_layers)
+    Lm = L - len(cfg.slstm_layers)
     Ls = len(cfg.slstm_layers)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
-
     return {
-        "len": torch.zeros((), dtype=torch.int32, device=dev),
+        **c,
         "m_num": zeros(Lm, batch * nh, 1, hd2, hd2),
         "m_den": zeros(Lm, batch * nh, 1, hd2, 1),
         "s_h": zeros(Ls, batch, D),
@@ -103,21 +124,52 @@ def _run_stack(params: LanguageModel, cfg: ArchConfig, x: torch.Tensor,
     return x, new
 
 
+def _store(dst: torch.Tensor, t: torch.Tensor) -> None:
+    """A prefill's K or V (B, S, K, hd) into one layer's cache (B,
+    S_cache, K, hd): padded to its length, or, under a sliding window
+    shorter than the prompt, the last S_cache entries at slots ``pos %
+    S_cache``."""
+    S, S_cache = t.shape[1], dst.shape[1]
+    if S <= S_cache:
+        dst[:, :S] = t
+    else:
+        dst.copy_(torch.roll(t[:, -S_cache:], S % S_cache, dims=1))
+
+
 def _dense_prefill(params: LanguageModel, x: torch.Tensor,
                    cache: Cache) -> torch.Tensor:
-    """The layers in order; each layer's K/V go into the cache: padded to
-    its length, or, under a sliding window shorter than the prompt, the
-    last S_cache entries at slots ``pos % S_cache``."""
-    S = x.shape[1]
-    S_cache = cache["k"].shape[2]
+    """The layers in order; each layer's K/V go into the cache."""
     for i, layer in enumerate(params.layers):
         x, kv = layer(x)
-        for name, t in kv.items():
-            if S <= S_cache:
-                cache[name][i, :, :S] = t
-            else:
-                cache[name][i] = torch.roll(t[:, -S_cache:], S % S_cache,
-                                            dims=1)
+        _store(cache["k"][i], kv["k"])
+        _store(cache["v"][i], kv["v"])
+    return x
+
+
+def _hybrid_stack(params: LanguageModel, cfg: ArchConfig, x: torch.Tensor,
+                  cache: Cache, decode: bool) -> torch.Tensor:
+    """The Mamba2 layers in order, each from and into its cache state,
+    and the shared block after every ``shared_attn_every`` of them: after
+    each full group only, so the tail of ``n_layers % shared_attn_every``
+    layers has none.  Prefill stores the block's K/V at each application
+    into ``ak``/``av``; decode writes the token's slot there, in place."""
+    k = cfg.shared_attn_every
+    for i, layer in enumerate(params.layers):
+        x, st = layer(x, state={"conv": cache["conv"][i],
+                                "ssm": cache["ssm"][i]})
+        cache["conv"][i] = st["conv"]
+        cache["ssm"][i] = st["ssm"]
+        if (i + 1) % k:
+            continue
+        g = (i + 1) // k - 1
+        if decode:
+            x, _ = params.shared_attn(x, state={
+                "k": cache["ak"][g], "v": cache["av"][g],
+                "len": cache["len"]})
+        else:
+            x, kv = params.shared_attn(x)
+            _store(cache["ak"][g], kv["k"])
+            _store(cache["av"][g], kv["v"])
     return x
 
 
@@ -125,13 +177,15 @@ def _dense_prefill(params: LanguageModel, x: torch.Tensor,
 def decode_step(params: LanguageModel, cfg: ArchConfig, cache: Cache,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """tokens (B, 1) int.  Returns (logits (B, V), new cache); the dense
-    K/V caches are updated in place."""
+    and hybrid caches are updated in place."""
     x = _embed(params, cfg, tokens)
+    new = dict(cache)
     if cfg.family == DENSE:
-        new = dict(cache)
         for i, layer in enumerate(params.layers):
             x, _ = layer(x, state={"k": cache["k"][i], "v": cache["v"][i],
                                    "len": cache["len"]})
+    elif cfg.family == HYBRID:
+        x = _hybrid_stack(params, cfg, x, cache, decode=True)
     else:
         x, new = _run_stack(params, cfg, x, cache)
     new["len"] = cache["len"] + 1
@@ -142,14 +196,17 @@ def decode_step(params: LanguageModel, cfg: ArchConfig, cache: Cache,
 def prefill(params: LanguageModel, cfg: ArchConfig, tokens: torch.Tensor, *,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence forward that also builds the decode cache.  Returns
-    (logits (B, S, V), cache).  The dense cache holds ``max_len`` tokens
-    (default: the prompt's); the SSM family ignores ``max_len``, and its
-    mLSTM scans take chunks of 128 tokens, as in the reference."""
+    (logits (B, S, V), cache).  The dense and hybrid K/V caches hold
+    ``max_len`` tokens (default: the prompt's); the SSM family ignores
+    ``max_len``.  The scans of Mamba2 and mLSTM take chunks of
+    ``min(128, S)`` tokens, as in the reference, which must divide S."""
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     cache = init_cache(params, cfg, B, max_len or S)
     if cfg.family == DENSE:
         x = _dense_prefill(params, x, cache)
+    elif cfg.family == HYBRID:
+        x = _hybrid_stack(params, cfg, x, cache, decode=False)
     else:
         x, cache = _run_stack(params, cfg, x, cache)
     cache["len"] = torch.tensor(S, dtype=torch.int32, device=x.device)

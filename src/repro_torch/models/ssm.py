@@ -1,17 +1,20 @@
-"""Recurrent blocks of the SSM family (xLSTM): the SSD scan, mLSTM and
-sLSTM, the counterparts of ``repro/models/ssm.py``.
+"""Recurrent blocks: the SSD scan, Mamba2 (the hybrid family), mLSTM and
+sLSTM (the SSM family, xLSTM), the counterparts of
+``repro/models/ssm.py``.
 
-mLSTM's matrix memory is gated linear attention, and both its scans
-(numerator and denominator) are SSD scans with heads folded into the
-batch: they go through ``kernels/ssm_scan`` — the hand-written CUDA
-kernel on the GPU, its plain chunked version on the CPU.  The single-
-token decode step is one plain recurrence step.  sLSTM is strictly
-sequential by construction and runs as a loop over time in plain torch
-(the reference's ``lax.scan``; no Pallas kernel there either).
+Mamba2's sequence mixing is the SSD scan with B/C shared across heads,
+and mLSTM's matrix memory is gated linear attention whose two scans
+(numerator and denominator) are SSD scans too; with heads folded into
+the batch, every prefill scan goes through ``kernels/ssm_scan`` — the
+hand-written CUDA kernel on the GPU, its plain chunked version on the
+CPU.  The single-token decode step of either is one plain recurrence
+step, as in the reference.  sLSTM is strictly sequential by
+construction and runs as a loop over time in plain torch (the
+reference's ``lax.scan``; no Pallas kernel there either).
 
 Simplifications as in the reference: one SSM group (B/C shared across
 heads); sigmoid input gating instead of the exponential-gate
-max-stabilizer.  Mamba2 (the hybrid family) is not ported yet.
+max-stabilizer.
 """
 from __future__ import annotations
 
@@ -25,9 +28,10 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.kernels.ssm_scan import ssd_ref as _ssd_ref_folded
-from .layers import apply_norm, dense_init, mlp_apply, mlp_init
+from .layers import apply_norm, dense_init, mlp_apply, mlp_init, rmsnorm
 
 Params = Dict[str, torch.Tensor]
+HEAD_P = 64     # Mamba2's head width: the reference's default, never changed
 
 
 # ----------------------------------------------------------- SSD (Mamba2)
@@ -75,6 +79,82 @@ def ssd_ref(x, loga, dt, Bm, Cm, h0=None):
     Bsz, _, H, _ = x.shape
     y, h = _ssd_ref_folded(*_fold(x, loga, dt, Bm, Cm, h0))
     return _unfold(y, h, Bsz, H)
+
+
+# ------------------------------------------------------------ Mamba2 block
+def mamba2_init(gen: torch.Generator, d_model: int, *, expand: int,
+                d_state: int, conv_k: int,
+                dtype: torch.dtype = torch.float32) -> Params:
+    d_in = expand * d_model
+    nh = d_in // HEAD_P
+    return {
+        "in_proj": dense_init(gen, (d_model, 2 * d_in + 2 * d_state + nh),
+                              dtype),
+        "conv_w": dense_init(gen, (conv_k, d_in + 2 * d_state), dtype,
+                             scale=1.0 / math.sqrt(conv_k)),
+        "conv_b": torch.zeros((d_in + 2 * d_state,), dtype=dtype),
+        "A_log": torch.zeros((nh,), dtype=torch.float32),
+        "D": torch.ones((nh,), dtype=torch.float32),
+        "dt_bias": torch.zeros((nh,), dtype=torch.float32),
+        "gamma": torch.ones((d_in,), dtype=dtype),
+        "out_proj": dense_init(gen, (d_in, d_model), dtype),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d: x (B, S, C), w (K, C), b (C,); ``state``
+    the K-1 inputs before x (zeros if None).  Returns (y (B, S, C), the
+    last K-1 inputs: the next call's state)."""
+    K, S = w.shape[0], x.shape[1]
+    pad = (x.new_zeros((x.shape[0], K - 1, x.shape[2])) if state is None
+           else state)
+    xp = torch.cat([pad, x], dim=1)                          # (B,S+K-1,C)
+    y = sum(xp[:, i:i + S] * w[i] for i in range(K)) + b
+    return y, xp[:, -(K - 1):]
+
+
+def mamba2_apply(p: Params, u: torch.Tensor, *, expand: int, d_state: int,
+                 chunk: int = 128, state: Optional[dict] = None
+                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """u (B, S, D), mixed in heads of ``HEAD_P``.  ``state`` {"conv" (B,
+    K-1, C), "ssm" (B, H, N, HEAD_P)}: with it, a one-token input takes
+    one recurrence step and a longer one scans from it (the SSD scan,
+    through ``ssm_scan``, in chunks of ``min(chunk, S)`` tokens, which
+    must divide S: ValueError otherwise).  Returns (out (B, S, D), the
+    new state or None)."""
+    B, S, D = u.shape
+    d_in = expand * D
+    nh = d_in // HEAD_P
+    z, xbc, dt = torch.split(u @ p["in_proj"],
+                             [d_in, d_in + 2 * d_state, nh], dim=-1)
+    conv_state = state["conv"] if state else None
+    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
+    xbc = F.silu(xbc)
+    x, Bm, Cm = torch.split(xbc, [d_in, d_state, d_state], dim=-1)
+    x = x.reshape(B, S, nh, HEAD_P)
+    # F.softplus returns x itself above 20, where jax.nn.softplus
+    # (logaddexp(x, 0)) differs from x by under 2e-9 relative
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    loga = -torch.exp(p["A_log"]) * dt                       # (B,S,H)
+    h0 = state["ssm"] if state else None
+    if S == 1 and state is not None:
+        # decode: a single recurrent step
+        a = torch.exp(loga[:, 0]).float()
+        upd = torch.einsum("bd,bhp->bhdp", Bm[:, 0].float(),
+                           (x[:, 0] * dt[:, 0, :, None]).float())
+        h = h0 * a[..., None, None] + upd
+        y = torch.einsum("bd,bhdp->bhp", Cm[:, 0].float(), h)[:, None]
+    else:
+        y, h = ssd_chunked(x, loga, dt, Bm, Cm, chunk=chunk, h0=h0)
+    y = y.to(x.dtype) + x * p["D"][:, None].to(x.dtype)
+    y = y.reshape(B, S, d_in) * F.silu(z)
+    y = rmsnorm(y, p["gamma"])
+    out = (y @ p["out_proj"]).to(u.dtype)
+    new_state = ({"conv": new_conv, "ssm": h}
+                 if state is not None else None)
+    return out, new_state
 
 
 # -------------------------------------------------------------- mLSTM block
@@ -189,6 +269,30 @@ def slstm_apply(p: Params, x: torch.Tensor, *,
 
 
 # ------------------------------------------------------------ layer modules
+class Mamba2Block(nn.Module):
+    """One pre-norm Mamba2 layer of the hybrid family, ``x +
+    mamba2(norm(x))`` and no MLP; the parameters keep the reference's
+    names (``ln``, ``mamba``)."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.ln = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype))
+        self.mamba = nn.ParameterDict(mamba2_init(
+            gen, cfg.d_model, expand=cfg.ssm_expand, d_state=cfg.ssm_state,
+            conv_k=cfg.ssm_conv, dtype=dtype))
+
+    def forward(self, x: torch.Tensor, state: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+        cfg = self.cfg
+        y, st = mamba2_apply(dict(self.mamba),
+                             apply_norm(cfg.norm, x, self.ln),
+                             expand=cfg.ssm_expand, d_state=cfg.ssm_state,
+                             state=state)
+        return x + y, st
+
+
 class _Block(nn.Module):
     """One pre-norm layer: ``x + mixer(norm(x))``, then ``x +
     MLP(norm(x))``; the parameters keep the reference's names (``ln``,

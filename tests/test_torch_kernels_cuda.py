@@ -175,14 +175,16 @@ def assert_scaled_close(got, want, tol):
 # (S = chunk), 128 chunks for the pass, one row, the P = 1 path at N 384,
 # 45 and 600 (two groups of a thread's state rows), P 70 and N 45 inside
 # every 128-wide tile, an odd P (single stores, a scalar pass), the
-# one-request serve shape and more than 65535 (row, chunk) pairs
+# one-request serve shape, more than 65535 (row, chunk) pairs and
+# zamba2-1.2b's Mamba2 scan (8 requests x 64 heads, N = P = 64)
 @pytest.mark.parametrize("BH,S,chunk,P,N", [
     (3, 32, 8, 16, 8), (3, 64, 16, 8, 16), (3, 16, 16, 32, 8),
     (3, 48, 8, 16, 16), (8, 256, 128, 384, 384), (8, 256, 128, 1, 384),
     (2, 40, 20, 70, 45), (4, 128, 128, 384, 384), (2, 1024, 8, 64, 48),
     (1, 256, 128, 384, 384), (2, 1024, 128, 1, 384), (3, 256, 64, 1, 45),
     (2, 256, 128, 1, 600), (2, 256, 128, 70, 45), (2, 96, 32, 3, 45),
-    (4, 1024, 128, 384, 384), (520, 128, 1, 3, 8), (520, 128, 1, 1, 8)])
+    (4, 1024, 128, 384, 384), (520, 128, 1, 3, 8), (520, 128, 1, 1, 8),
+    (512, 256, 128, 64, 64)])
 def test_ssd_kernel_vs_plain(cuda_device, BH, S, chunk, P, N):
     x, loga, dt, Bm, Cm, h0 = ssd_inputs(BH, S, P, N, S * P + N)
     for state in (None, h0):
@@ -208,7 +210,7 @@ def test_ssd_kernel_strong_decay_stays_finite(cuda_device):
     assert_scaled_close(got_y, want, 1e-4)
 
 
-@pytest.mark.parametrize("P", [384, 1])
+@pytest.mark.parametrize("P", [384, 1, 64])
 def test_ssd_kernel_is_float32_accurate(cuda_device, P):
     """The 3xTF32 products (and, at P = 1, the recurrence) keep float32
     accuracy: against a float64 run of the plain version, y and the final
@@ -289,7 +291,9 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
 # at heads that are not a multiple of 8 (zero-filled to one: 36, 100, and
 # 7, which is not a multiple of 4 either and is staged by 4-byte copies),
 # one row of the serve shape (S 1024: 16 KV tiles, heaviest first), and
-# Sq 5, the fewest queries that take the tile configuration
+# Sq 5, the fewest queries that take the tile configuration; last
+# zamba2-1.2b's shared block (heads of 64): a row of its prefill and its
+# decode over the cache's valid prefix
 @pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,kv_len", [
     (2, 200, 200, 4, 4, 80, True, 0, None),
     (2, 64, 64, 4, 2, 64, True, 0, None),
@@ -312,6 +316,8 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
     (1, 1024, 1024, 2, 2, 80, True, 0, None),
     (2, 5, 5, 4, 2, 80, True, 0, None),
     (2, 5, 70, 4, 4, 80, False, 0, 66),
+    (1, 1024, 1024, 2, 2, 64, True, 0, None),
+    (4, 1, 1056, 8, 8, 64, False, 0, 1025),
 ])
 def test_flash_kernel_vs_plain(cuda_device, B, Sq, Skv, H, K, hd, causal,
                                window, kv_len):
@@ -391,6 +397,21 @@ def test_dense_serve_on_gpu_matches_cpu(cuda_device):
                         seed=1)
     assert gpu["launches"]["flash_fwd"] == {"prefill": 4,
                                             "decode": 4 * (gen - 1)}
+
+
+def test_hybrid_serve_on_gpu_matches_cpu(cuda_device):
+    """reduced zamba2-1.2b (4 Mamba2 layers, the shared block after every
+    2) served on the card and on the CPU: the same logits, one Mamba2
+    scan a layer in the kernel per prefill (decode takes plain
+    recurrence steps) and one attention call a shared-block application
+    per prefill and per decode step."""
+    gen = 4
+    gpu = serve_on_both("zamba2-1.2b", cuda_device, requests=3,
+                        prompt_len=48, gen_len=gen, shared_prefix_len=16,
+                        seed=1)
+    assert gpu["launches"] == {
+        "ssd_chunked": {"prefill": 4, "decode": 0},
+        "flash_fwd": {"prefill": 2, "decode": 2 * (gen - 1)}}
 
 
 def paged_inputs(B, K, G, hd, N, page, P_max, lengths, seed):
