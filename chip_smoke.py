@@ -12,7 +12,8 @@ from the zero state prefill passes; ``y`` and the final state; each
 stage's time from torch.profiler, the peak device memory of a call, and
 one request's mLSTM scans too), flash attention at the dense and hybrid
 serve paths' prefill (causal) and decode (one query over the cache's
-valid prefix) shapes (heads of 80 and of 64), paged
+valid prefix) shapes (heads of 80 and of 64, and mixtral-8x7b's 32
+query heads of 128 over 8 KV heads, also under a binding window), paged
 decode attention at stablelm-3b's decode and mixtral-8x7b's GQA shape
 (timed; also against flash attention over the same tokens held
 contiguously), granite-20b's MQA shape and pages of 16 and 12 tokens.
@@ -61,6 +62,15 @@ The LLM serving path, ``repro_torch.launch.serve.serve``:
   SSD kernel 38 a prefill and none in decode, flash 6 a prefill and 6 a
   decode step) and the same split (Mamba2 layers against the shared
   block);
+* ``serve_mixtral``: mixtral-8x7b at full width cut to 8 of its 32
+  layers (d_model 4096, 32 heads of 128 over 8 KV heads, 8 SwiGLU
+  experts of 14336, top-2; 11.87B random weights drawn on the card, the
+  whole model does not fit one card in float32), the same requests, the
+  einsum dispatch, with the flash kernel's launches checked (8 a
+  prefill, 8 a decode step, the SSD kernel none) and the split of a warm
+  prefill and decode step into attention and MoE; then one of its
+  full-width MoE layers alone at the prefill and decode shapes, einsum
+  against sort dispatch within ``MOE_TOL``, each timed;
 * ``paged_stablelm``: the EdgeKV page pool's data plane at full width:
   the same stablelm-3b batch through ``prefill`` and 31 decode steps,
   its pages registered as ``serve`` registers them, each layer's KV
@@ -71,9 +81,11 @@ The LLM serving path, ``repro_torch.launch.serve.serve``:
 * for each model, the card's serve run against a CPU run handed the
   card's weights, teacher-forced with the card's tokens, logits within
   ``LOGIT_TOL``: xlstm-125m whole at 2 requests x 256 tokens,
-  stablelm-3b at full width cut to 2 layers and zamba2-1.2b at full
-  width cut to 7 (one shared-block application and one tail layer), 2
-  requests x 128 tokens.
+  stablelm-3b and mixtral-8x7b at full width cut to 2 layers and
+  zamba2-1.2b at full width cut to 7 (one shared-block application and
+  one tail layer), 2 requests x 128 tokens; for mixtral also the
+  smallest gap between a token's 2nd and 3rd router probability on the
+  card, and how many expert choices the CPU made otherwise.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path and read just after, and a path that never launched its
@@ -136,6 +148,10 @@ SERVE = dict(arch="xlstm-125m", requests=8, prompt_len=1024,
              shared_prefix_len=256, gen_len=32, seed=0)
 SERVE_DENSE = dict(SERVE, arch="stablelm-3b")
 SERVE_HYBRID = dict(SERVE, arch="zamba2-1.2b")
+# mixtral-8x7b at full width cut to 8 of its 32 layers: a layer is 1.451B
+# parameters, 5.81 GB in float32, so the whole model (186 GB) does not fit
+# one 80 GB card; 8 layers with the embedding and head are 47.5 GB
+SERVE_MOE = dict(SERVE, arch="mixtral-8x7b", layers=8)
 SERVE_VS_CPU = dict(arch="xlstm-125m", requests=2, prompt_len=256,
                     shared_prefix_len=64, gen_len=8, seed=0)
 SERVE_DENSE_VS_CPU = dict(arch="stablelm-3b", layers=2, requests=2,
@@ -144,6 +160,13 @@ SERVE_DENSE_VS_CPU = dict(arch="stablelm-3b", layers=2, requests=2,
 # zamba2-1.2b cut to 7 layers: one group of 6 with the shared block after
 # it, and one tail layer with none
 SERVE_HYBRID_VS_CPU = dict(SERVE_DENSE_VS_CPU, arch="zamba2-1.2b", layers=7)
+# mixtral-8x7b cut to 2 layers, where capacity drops pairs: C 40 a
+# sequence in prefill, C 1 for the batch of 2 in decode
+SERVE_MOE_VS_CPU = dict(SERVE_DENSE_VS_CPU, arch="mixtral-8x7b")
+# the MoE layer's einsum dispatch against its sort dispatch on the card:
+# max |einsum - sort| <= tol * max(1, max |einsum|); the same routing and
+# expert products, the combine's sums in another order
+MOE_TOL = 1e-5
 # the paged kernel alone: 8 sequences of 1025 to 1055 tokens whose first
 # 256 are a shared prefix, in a pool of 4096 slots (serve's); (case, query
 # heads, KV heads, head width, page, timed).  stablelm-3b's decode and
@@ -708,17 +731,42 @@ def flash_work(B: int, Sq: int, H: int, K: int, hd: int, kv_len: int,
     return 4 * floats, 4 * B * H * pairs * hd
 
 
+def sdpa_ms(q, k, v, kv_len: int, causal: bool) -> tuple:
+    """torch's scaled_dot_product_attention on q (B, Sq, H, hd) over the
+    first ``kv_len`` of k, v (B, Skv, K, hd), timed.  Returns (ms, how):
+    under GQA the call with ``enable_gqa`` (the same inputs), and beside
+    it the call over K/V repeated to the H query heads beforehand
+    (outside the timing), which reaches torch's MHA kernels."""
+    import torch.nn.functional as F
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+    if G == 1:
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)), "MHA"
+    kr, vr = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
+    rep_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kr, vr, is_causal=causal))
+    del kr, vr
+    ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    return ms, f"enable_gqa; over K/V repeated to {q.shape[2]} heads " \
+        f"{rep_ms:.4f} ms"
+
+
 def flash_kernel_phase(card: dict, dev) -> dict:
-    """The flash kernel at the serve paths' shapes, 32 heads for 8
-    requests: stablelm-3b's heads of 80 and zamba2-1.2b's shared block's
-    heads of 64.  Prefill (1024 tokens, causal) and decode (one query
+    """The flash kernel at the serve paths' shapes for 8 requests:
+    stablelm-3b's 32 heads of 80, zamba2-1.2b's shared block's 32 heads
+    of 64 and mixtral-8x7b's 32 query heads of 128 over 8 KV heads (GQA,
+    read natively).  Prefill (1024 tokens, causal) and decode (one query
     over a 1056-slot cache whose valid length, a device int32, is 1025,
     and for stablelm-3b also 1055); against the plain chunked version
-    and the naive oracle on the same inputs, then timed beside the plain
-    version, its bound and torch's scaled_dot_product_attention
-    (float32, the yardstick; the port never calls it)."""
+    and the naive oracle on the same inputs (K/V repeated to the query
+    heads for them), then timed beside the plain version, its bound and
+    torch's scaled_dot_product_attention (float32, the yardstick; the
+    port never calls it).  mixtral's prefill is also checked, untimed,
+    under a window of 256 that binds."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_chunked_ref, flash_attention_ref, flash_fwd)
 
@@ -728,32 +776,42 @@ def flash_kernel_phase(card: dict, dev) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def fold(t):                     # (B, S, H, hd) -> (B * H, S, hd)
-        return t.transpose(1, 2).reshape(B * H, t.shape[1], t.shape[-1])
+    def fold(t, reps=1):          # (B, S, n, hd) -> (B * n * reps, S, hd)
+        if reps > 1:
+            t = t.repeat_interleave(reps, dim=2)
+        return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[-1])
 
-    def cases_at(hd: int, kv_lens: tuple) -> dict:
-        q, k, v = randn(B, S, H, hd), randn(B, S, H, hd), randn(B, S, H, hd)
-        q1, kc, vc = randn(B, 1, H, hd), randn(B, S_max, H, hd), randn(
-            B, S_max, H, hd)
+    def cases_at(hd: int, K: int, kv_lens: tuple, window: int) -> dict:
+        """case -> (run, (q, k, v), plain kwargs, kv_len, causal, timed)"""
+        q, k, v = randn(B, S, H, hd), randn(B, S, K, hd), randn(B, S, K, hd)
+        q1, kc, vc = randn(B, 1, H, hd), randn(B, S_max, K, hd), randn(
+            B, S_max, K, hd)
         cases = {"prefill": (lambda: flash_fwd(q, k, v, causal=True),
-                             (q, k, v), dict(causal=True), S, True)}
+                             (q, k, v), dict(causal=True), S, True, True)}
+        if window:
+            cases[f"prefill window {window}"] = (
+                lambda: flash_fwd(q, k, v, causal=True, window=window),
+                (q, k, v), dict(causal=True, window=window), S, True, False)
         for n in kv_lens:
             n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
             cases[f"decode kv_len {n}"] = (
                 lambda n_dev=n_dev: flash_fwd(q1, kc, vc, causal=False,
                                               kv_len=n_dev),
-                (q1, kc, vc), dict(causal=False, seq_k=n_dev), n, False)
+                (q1, kc, vc), dict(causal=False, seq_k=n_dev), n, False,
+                True)
         return cases
 
     out = {}
-    for model, hd, kv_lens in (("stablelm-3b", 80, (S + 1, S_max - 1)),
-                               ("zamba2-1.2b", 64, (S + 1,))):
-        for case, (run, (a, b, c), kw, kv_len, causal) in cases_at(
-                hd, kv_lens).items():
+    for model, hd, K, kv_lens, window in (
+            ("stablelm-3b", 80, H, (S + 1, S_max - 1), 0),
+            ("zamba2-1.2b", 64, H, (S + 1,), 0),
+            ("mixtral-8x7b", 128, 8, (S + 1,), 256)):
+        for case, (run, (a, b, c), kw, kv_len, causal, timed) in cases_at(
+                hd, K, kv_lens, window).items():
             got = fold(run())
             check(bool(torch.isfinite(got).all()),
                   f"flash {model} {case}: not finite")
-            folded = [fold(t) for t in (a, b, c)]
+            folded = [fold(a), fold(b, H // K), fold(c, H // K)]
             errs = {}
             for what, plain_fn in (("plain", flash_attention_chunked_ref),
                                    ("naive", flash_attention_ref)):
@@ -764,21 +822,25 @@ def flash_kernel_phase(card: dict, dev) -> dict:
                       f"{what} {err} > {bound}")
                 errs[what] = err
             del want, got
-            nbytes, ops = flash_work(B, a.shape[1], H, H, hd, kv_len, causal)
+            shape = (f"(B {B}, Sq {a.shape[1]}, Skv {b.shape[1]}, H {H}, K "
+                     f"{K}, hd {hd})")
+            if not timed:
+                log(f"flash_fwd {model} {case} {shape}: max_abs_err vs "
+                    f"plain {errs['plain']:.3e}, vs naive "
+                    f"{errs['naive']:.3e} (tol {FLASH_TOL} x max(1, "
+                    f"|plain|)); checked, not timed")
+                continue
+            nbytes, ops = flash_work(B, a.shape[1], H, K, hd, kv_len, causal)
             b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
             ms = time_ms(run)
             plain_ms = time_ms(
                 lambda: flash_attention_chunked_ref(*folded, **kw),
                 reps=1, windows=3)
-            qt = a.transpose(1, 2)
-            kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (b, c))
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal))
+            lib_ms, how = sdpa_ms(a, b, c, kv_len, causal)
             # the tile configuration's products run in 3xTF32: three TF32
             # passes of the same operations on the tensor cores
             tc_ms = 3 * ops / card["tf32"] * 1e3
-            log(f"flash_fwd {model} {case} (B {B}, Sq {a.shape[1]}, Skv "
-                f"{b.shape[1]}, H {H}, hd {hd}): max_abs_err vs plain "
+            log(f"flash_fwd {model} {case} {shape}: max_abs_err vs plain "
                 f"{errs['plain']:.3e}, vs naive {errs['naive']:.3e} (tol "
                 f"{FLASH_TOL} x max(1, |plain|)); {ms:.4f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}: {ops / 1e9:.3f} GFLOP, "
@@ -787,7 +849,7 @@ def flash_kernel_phase(card: dict, dev) -> dict:
                 f"tensor cores {tc_ms:.4f} ms (3 x ops at "
                 f"{card['tf32'] / 1e12:.0f} TFLOP/s), plain {plain_ms:.3f} "
                 f"ms, library {lib_ms:.4f} ms (scaled_dot_product_attention,"
-                f" float32); kernel / library {ms / lib_ms:.3f}")
+                f" float32, {how}); kernel / library {ms / lib_ms:.3f}")
             out[hd, case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by, max_abs_err=errs["plain"],
                                  library_ms=lib_ms)
@@ -806,10 +868,8 @@ def flash_kernel_phase(card: dict, dev) -> dict:
         nbytes, ops = flash_work(B, S, H, H, w, S, True)
         b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
         ms = time_ms(lambda: flash_fwd(qw, kw, vw, causal=True))
-        qt, kt, vt = (t.transpose(1, 2) for t in (qw, kw, vw))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-        log(f"flash_fwd prefill at hd {w} (B {B}, S {S}, H {H}): "
+        lib_ms, _ = sdpa_ms(qw, kw, vw, S, True)
+        log(f"flash_fwd prefill at hd {w}, MHA (B {B}, S {S}, H {H}): "
             f"max_abs_err vs plain {err:.3e}; {ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}), 3xTF32 on the tensor cores "
             f"{3 * ops / card['tf32'] * 1e3:.4f} ms, library {lib_ms:.4f} "
@@ -820,7 +880,9 @@ def flash_kernel_phase(card: dict, dev) -> dict:
         source="src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:87",
         launches=0, **out[80, "prefill"], decode=out[80, decode],
-        hd64={"prefill": out[64, "prefill"], "decode": out[64, decode]})
+        hd64={"prefill": out[64, "prefill"], "decode": out[64, decode]},
+        hd128_gqa={"prefill": out[128, "prefill"],
+                   "decode": out[128, decode]})
 
 
 def paged_tables(B: int, page: int, rng) -> tuple:
@@ -1093,20 +1155,36 @@ def device_busy(fn) -> tuple:
     return sum(kinds.values()), len(kern), kinds
 
 
-def serve_breakdown(dev, spec: dict, groups: dict, kernels: tuple) -> dict:
-    """Where a warm prefill and a warm decode step of ``spec``'s shape go:
-    host wall per group of layers (``groups``: name -> the model's layer
-    list, or one layer called several times; synchronized forward
-    hooks), the rest (embedding, final norm, LM head), the launches of
-    each of ``kernels`` per call, and the device's busy share and kernel
-    time by kind from torch.profiler.  Random weights from the spec's
-    seed, drawn on the card, and random prompt tokens, as serve."""
-    import torch
+def spec_model(dev, spec: dict):
+    """The model of a serve spec: its config, cut to ``spec["layers"]``
+    layers where given (every width kept), random weights drawn on the
+    card from the spec's seed."""
+    import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import KERNELS
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import init_params
     cfg = get_config(spec["arch"])
-    params = init_params(cfg, spec["seed"], device=dev)
+    if "layers" in spec:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    return init_params(cfg, spec["seed"], device=dev)
+
+
+def serve_breakdown(dev, spec: dict, groups: dict, kernels: tuple,
+                    params=None) -> dict:
+    """Where a warm prefill and a warm decode step of ``spec``'s shape go:
+    host wall per group of modules (``groups``: name -> a function of the
+    model giving the modules whose calls make up the group; synchronized
+    forward hooks, over the prefill and over one more decode step), the
+    rest (embedding, final norm, LM head), the launches of each of
+    ``kernels`` per call, the unhooked decode step's wall, and the
+    device's busy share and kernel time by kind from torch.profiler.
+    ``params``: the model (default ``spec_model``); random prompt tokens,
+    as serve."""
+    import torch
+    from repro_torch.launch.serve import KERNELS
+    from repro_torch.models import decode_step, prefill
+    if params is None:
+        params = spec_model(dev, spec)
+    cfg = params.cfg
     B, S = spec["requests"], spec["prompt_len"]
     toks = torch.randint(1, cfg.vocab_size, (B, S),
                          generator=torch.Generator().manual_seed(0)).to(dev)
@@ -1114,36 +1192,42 @@ def serve_breakdown(dev, spec: dict, groups: dict, kernels: tuple) -> dict:
     logits, cache = prefill(params, cfg, toks, max_len=max_len)  # warm-up
     tok = logits[:, -1].argmax(-1, keepdim=True)
     del logits
-    spent = {g: 0.0 for g in groups}
-    started = {}
 
-    def pre(mod, args):
-        torch.cuda.synchronize()
-        started[mod] = time.perf_counter()
+    def hooked(fn) -> tuple:
+        """(wall s, wall s per group) of one synchronized call of fn."""
+        spent = {g: 0.0 for g in groups}
+        started = {}
 
-    def post(group):
-        def hook(mod, args, out):
+        def pre(mod, args):
             torch.cuda.synchronize()
-            spent[group] += time.perf_counter() - started[mod]
-        return hook
+            started[mod] = time.perf_counter()
 
-    hooks = []
-    for group, attr in groups.items():
-        mods = getattr(params, attr)
-        for mod in (mods if isinstance(mods, torch.nn.ModuleList)
-                    else [mods]):
-            hooks += [mod.register_forward_pre_hook(pre),
-                      mod.register_forward_hook(post(group))]
+        def post(group):
+            def hook(mod, args, out):
+                torch.cuda.synchronize()
+                spent[group] += time.perf_counter() - started[mod]
+            return hook
+
+        hooks = []
+        for group, mods in groups.items():
+            for mod in mods(params):
+                hooks += [mod.register_forward_pre_hook(pre),
+                          mod.register_forward_hook(post(group))]
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, spent
+        finally:
+            for h in hooks:
+                h.remove()
+
     wrappers = {k: KERNELS[k] for k in kernels}
     for w in wrappers.values():
         w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    prefill(params, cfg, toks, max_len=max_len)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
-    for h in hooks:
-        h.remove()
+    total, spent = hooked(lambda: prefill(params, cfg, toks,
+                                          max_len=max_len))
     out = dict(prefill_s=total, groups=spent,
                prefill_launches={k: w.launches for k, w in wrappers.items()})
     decode_step(params, cfg, cache, tok)                   # warm-up
@@ -1158,6 +1242,8 @@ def serve_breakdown(dev, spec: dict, groups: dict, kernels: tuple) -> dict:
     out["decode_step_s"] = (time.perf_counter() - t0) / steps
     out["decode_launches"] = {k: w.launches / steps
                               for k, w in wrappers.items()}
+    out["decode_hooked_s"], out["decode_groups"] = hooked(
+        lambda: decode_step(params, cfg, cache, tok))
     for what, fn in (("prefill",
                       lambda: prefill(params, cfg, toks, max_len=max_len)),
                      ("decode", lambda: decode_step(params, cfg, cache,
@@ -1169,17 +1255,24 @@ def serve_breakdown(dev, spec: dict, groups: dict, kernels: tuple) -> dict:
     return out
 
 
-def log_breakdown(path: str, bd: dict) -> None:
-    parts = [f"{g} {t:.4f} s ({t / bd['prefill_s']:.1%})"
-             for g, t in bd["groups"].items()]
-    rest = bd["prefill_s"] - sum(bd["groups"].values())
-    log(f"{path} warm prefill {bd['prefill_s']:.4f} s: " + ", ".join(parts)
-        + f", embedding, final norm and LM head {rest:.4f} s "
-        f"({rest / bd['prefill_s']:.1%}); kernel launches a prefill "
+def log_breakdown(path: str, bd: dict, inner: tuple = ()) -> None:
+    """``inner``: groups whose modules run inside another group's, left
+    out of the sum that gives the rest."""
+    def split(total, groups):
+        rest = total - sum(t for g, t in groups.items() if g not in inner)
+        return (", ".join(f"{g} {t:.4f} s ({t / total:.1%})"
+                          for g, t in groups.items())
+                + f", embedding, final norm and LM head {rest:.4f} s "
+                f"({rest / total:.1%})")
+    log(f"{path} warm prefill {bd['prefill_s']:.4f} s: "
+        + split(bd["prefill_s"], bd["groups"])
+        + "; kernel launches a prefill "
         + ", ".join(f"{k} {n}" for k, n in bd["prefill_launches"].items())
         + f"; warm decode step {bd['decode_step_s'] * 1e3:.3f} ms, kernel "
         f"launches a step "
-        + ", ".join(f"{k} {n:g}" for k, n in bd["decode_launches"].items()))
+        + ", ".join(f"{k} {n:g}" for k, n in bd["decode_launches"].items())
+        + f"; one decode step under the hooks {bd['decode_hooked_s']:.4f} "
+        f"s: " + split(bd["decode_hooked_s"], bd["decode_groups"]))
     # the profiler slows the host many times over, not the kernels: the
     # busy share is taken against the untraced warm wall time
     for what, wall in (("prefill", bd["prefill_s"]),
@@ -1198,17 +1291,19 @@ def log_breakdown(path: str, bd: dict) -> None:
                                   key=lambda kv: -kv[1]))))
 
 
-def serve_path(dev, spec: dict, launches: dict) -> dict:
+def serve_path(dev, spec: dict, launches: dict, params=None) -> dict:
     """Serve ``spec`` at full width on the card and check what comes out:
     token and logit shapes, finite logits, greedy tokens, the page pool,
     and each kernel's launches (``launches``: kernel -> (per prefill, per
-    decode step))."""
+    decode step)).  ``params``: the model to serve (a depth-cut one), or
+    None for the one ``serve`` draws from the spec's seed."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
+    kw = {k: v for k, v in spec.items() if k != "layers"}
     torch.cuda.reset_peak_memory_stats(dev)
-    res = serve(device=dev, **spec)
+    res = serve(device=dev, params=params, **kw)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     cfg = get_config(spec["arch"])
     B, G = spec["requests"], spec["gen_len"]
@@ -1233,7 +1328,9 @@ def serve_path(dev, spec: dict, launches: dict) -> dict:
     check(res["pool"]["dedup_hits"] == (B - 1) * pages
           and res["pool"]["slots_used"] == pages + B * local,
           f"{name}: page pool {res['pool']}")
-    log(f"{name}: {B} requests x {spec['prompt_len']} prompt tokens "
+    depth = (f" ({params.cfg.n_layers} of {cfg.n_layers} layers, d_model "
+             f"{cfg.d_model})" if params is not None else "")
+    log(f"{name}{depth}: {B} requests x {spec['prompt_len']} prompt tokens "
         f"(shared prefix {spec['shared_prefix_len']}) + {G} generated; "
         f"prefill {res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s "
         f"({G - 1} steps, {res['decode_s'] / (G - 1) * 1e3:.3f} ms each), "
@@ -1245,23 +1342,120 @@ def serve_path(dev, spec: dict, launches: dict) -> dict:
     return res
 
 
+def dropped_pairs(ids, n_experts: int, capacity: int) -> int:
+    """(token, slot) pairs of expert ids (G, T, k) past their expert's
+    capacity in their group: the pairs either dispatch drops."""
+    import torch
+    per = torch.nn.functional.one_hot(ids, n_experts).sum(dim=(1, 2))
+    return int((per - capacity).clamp(min=0).sum())
+
+
+def moe_phase(dev, layer, cfg) -> dict:
+    """One full-width MoE layer (``layer``, the served model's first) on
+    the card at the serve path's two shapes: prefill, each of 8
+    sequences of 1024 tokens a group at the config's capacity factor,
+    and decode, the batch of 8 as one group at max(cf, 2.0).  Both
+    dispatches on the same seeded inputs, held to each other within
+    ``MOE_TOL`` scaled, each timed with its peak memory a call; the
+    pairs dropped at capacity are counted."""
+    import torch
+    from repro_torch.models import moe
+    p = layer.params()
+    gen = torch.Generator(dev).manual_seed(7)
+    E, k, D, F = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
+    out = {}
+    with torch.no_grad():    # the parameters require grad
+        for shape, (G, T, cf) in (("prefill", (8, 1024, cfg.capacity_factor)),
+                                  ("decode", (1, 8, max(cfg.capacity_factor,
+                                                        2.0)))):
+            x = torch.randn((G, T, D), generator=gen, device=dev)
+            C = moe._capacity(T, E, k, cf)
+            kw = dict(top_k=k, activation=cfg.activation, capacity_factor=cf)
+            dropped = dropped_pairs(moe._top_k_gating(x, p["router"], k)[1],
+                                    E, C)
+            ys = {}
+            for name, fn in (("einsum", moe.moe_apply_einsum),
+                             ("sort", moe.moe_apply_sort)):
+                ys[name] = fn(p, x, **kw)[0]
+                peak = call_peak_mb(lambda: fn(p, x, **kw), dev)
+                ms = time_ms(lambda: fn(p, x, **kw), reps=3, windows=3)
+                out[shape, name] = dict(ms=ms, peak_mb=peak)
+            err = float((ys["einsum"] - ys["sort"]).abs().max())
+            bound = MOE_TOL * max(1.0, float(ys["einsum"].abs().max()))
+            check(bool(torch.isfinite(ys["einsum"]).all()),
+                  f"moe {shape}: not finite")
+            check(err <= bound, f"moe {shape}: einsum vs sort max_abs_err "
+                  f"{err} > {bound}")
+            # the experts' products run every capacity slot, full or not
+            expert_ops = 2 * G * E * C * D * F * (3 if cfg.activation ==
+                                                   "swiglu" else 2)
+            weights = sum(w.numel() for w in p["experts"].values()) * 4
+            e, so = out[shape, "einsum"], out[shape, "sort"]
+            log(f"moe {shape} (G {G}, T {T}, D {D}, E {E}, top-{k}, F {F}, "
+                f"cf {cf}, C {C}; {dropped} of {G * T * k} pairs dropped at "
+                f"capacity): einsum {e['ms']:.3f} ms (peak "
+                f"{e['peak_mb']:.1f} MB a call), sort {so['ms']:.3f} ms "
+                f"(peak {so['peak_mb']:.1f} MB); einsum vs sort max_abs_err "
+                f"{err:.3e} (tol {MOE_TOL} x max(1, |einsum|)); the "
+                f"experts' products {expert_ops / 1e12:.4f} TFLOP "
+                f"({expert_ops / e['ms'] / 1e9:.2f} TFLOP/s in einsum), "
+                f"their weights {weights / 1e9:.3f} GB "
+                f"({weights / e['ms'] / 1e9:.3f} TB/s in einsum)")
+            del x, ys
+    return out
+
+
+def router_watch(model) -> dict:
+    """Forward hooks on every MoE layer of ``model`` that record, per
+    call, the experts each token's router chose (the top k of its
+    probabilities, as the layer computes them from the same input), the
+    smallest gap between the k-th and (k+1)-th probability, where a
+    float32 difference could flip the choice, and the (token, slot)
+    pairs dropped at capacity in prefill and in decode."""
+    import torch
+    from repro_torch.models.moe import MoELayer, _capacity
+    seen = {"ids": [], "gap": float("inf"), "hooks": [],
+            "dropped": {"prefill": 0, "decode": 0}}
+
+    def hook(mod, args, kwargs, out):
+        x, k = args[0], kwargs["top_k"]
+        E = mod.router.shape[-1]
+        probs = torch.softmax((x @ mod.router).float(), dim=-1)
+        top = torch.topk(probs, k + 1, dim=-1)
+        ids = top.indices[..., :k]
+        seen["ids"].append(ids.cpu())
+        seen["gap"] = min(seen["gap"], float(
+            (top.values[..., k - 1] - top.values[..., k]).min()))
+        C = _capacity(x.shape[1], E, k, kwargs["capacity_factor"])
+        # decode routes the batch as one group
+        phase = "decode" if x.shape[0] == 1 else "prefill"
+        seen["dropped"][phase] += dropped_pairs(ids, E, C)
+
+    for mod in model.modules():
+        if isinstance(mod, MoELayer):
+            seen["hooks"].append(
+                mod.register_forward_hook(hook, with_kwargs=True))
+    return seen
+
+
 def serve_vs_cpu(dev, spec: dict) -> None:
     """The card's serve run against a CPU run handed the card's weights
     and fed the card's tokens: logits within ``LOGIT_TOL``.  Also reads
     (does not check) the same comparison with TF32 matrix products, which
-    the serve path leaves off."""
-    import dataclasses
+    the serve path leaves off, and for an MoE model the smallest
+    2nd-to-3rd router probability gap on the card and how many routing
+    choices the CPU run made otherwise."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
-    from repro_torch.models import init_params
-    kw = dict(spec)
-    cfg = get_config(kw.pop("arch"))
-    if "layers" in kw:
-        cfg = dataclasses.replace(cfg, n_layers=kw.pop("layers"))
-    model = init_params(cfg, kw["seed"], device=dev)
+    kw = {k: v for k, v in spec.items() if k != "layers"}
+    model = spec_model(dev, spec)
+    cfg = model.cfg
+    watch = router_watch(model)
     gpu = serve(device=dev, params=model, **kw)
+    card_ids, watch["ids"] = watch["ids"], []
+    for h in watch["hooks"]:
+        h.remove()
     tf32_was = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -1270,13 +1464,27 @@ def serve_vs_cpu(dev, spec: dict) -> None:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32_was
     t0 = time.perf_counter()
-    cpu = serve(device="cpu", params=model.cpu(),
-                teacher_tokens=gpu["tokens"], **kw)
+    cpu_watch = router_watch(model.cpu())
+    cpu = serve(device="cpu", params=model, teacher_tokens=gpu["tokens"],
+                **kw)
     err = float(np.max(np.abs(gpu["logits"] - cpu["logits"])))
     bound = LOGIT_TOL * max(1.0, float(np.max(np.abs(cpu["logits"]))))
     what = (f"{cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}) "
             f"vs CPU")
-    check(err <= bound, f"{what}: logits max_abs_err {err} > {bound}")
+    routing = ""
+    if card_ids:
+        check(len(card_ids) == len(cpu_watch["ids"]),
+              f"{what}: MoE calls differ")
+        moved = sum(int((a != b).sum()) for a, b in
+                    zip(card_ids, cpu_watch["ids"]))
+        total = sum(a.numel() for a in card_ids)
+        routing = (f"; router: smallest gap between the top-{cfg.top_k} "
+                   f"and the next probability on the card "
+                   f"{watch['gap']:.3e}, the CPU's expert choices differ "
+                   f"in {moved} of {total}; pairs dropped at capacity on "
+                   f"the card {watch['dropped']}")
+    check(err <= bound, f"{what}: logits max_abs_err {err} > {bound}"
+          + routing)
     agree = float(np.mean(gpu["tokens"] == cpu["logits"].argmax(-1)))
     tf32_err = float(np.max(np.abs(tf32["logits"] - cpu["logits"])))
     log(f"{what} ({kw['requests']} requests x {kw['prompt_len']} tokens + "
@@ -1285,7 +1493,7 @@ def serve_vs_cpu(dev, spec: dict) -> None:
         f"card's tokens = CPU argmax for {agree:.0%}; CPU run "
         f"{time.perf_counter() - t0:.1f} s; with allow_tf32=True "
         f"{tf32_err:.3e}, {'above' if tf32_err > bound else 'within'} the "
-        f"bound")
+        f"bound{routing}")
 
 
 def run_figures(dev, wrappers: dict) -> dict:
@@ -1562,8 +1770,8 @@ def main() -> int:
           lambda: serve_path(dev, SERVE, {"ssd_chunked": (2 * n_mlstm, 0)}))
     k3 = kernels["ssd_chunked"]
     scan_s = n_mlstm * (k3["ms"] + k3["denominator"]["ms"]) / 1e3
-    bd = serve_breakdown(dev, SERVE, {"mLSTM": "mlstm_layers",
-                                      "sLSTM": "slstm_layers"},
+    bd = serve_breakdown(dev, SERVE, {"mLSTM": lambda m: m.mlstm_layers,
+                                      "sLSTM": lambda m: m.slstm_layers},
                          ("ssd_chunked",))
     check(bd["prefill_launches"]["ssd_chunked"] == 2 * n_mlstm,
           f"serve_xlstm breakdown: {bd['prefill_launches']} SSD launches")
@@ -1583,7 +1791,8 @@ def main() -> int:
           f"serve_stablelm: {by_path['flash_fwd']['serve_stablelm']} flash "
           f"launches, expected {L} x {SERVE_DENSE['gen_len']} passes")
     torch.cuda.empty_cache()
-    bd = serve_breakdown(dev, SERVE_DENSE, {"decoder layers": "layers"},
+    bd = serve_breakdown(dev, SERVE_DENSE,
+                         {"decoder layers": lambda m: m.layers},
                          ("flash_fwd",))
     check(bd["prefill_launches"] == {"flash_fwd": L}
           and bd["decode_launches"] == {"flash_fwd": L},
@@ -1627,9 +1836,10 @@ def main() -> int:
           f"serve_zamba2: {by_path['flash_fwd']['serve_zamba2']} flash "
           f"launches, expected {n_app} x {SERVE_HYBRID['gen_len']} passes")
     torch.cuda.empty_cache()
-    bd = serve_breakdown(dev, SERVE_HYBRID, {"Mamba2 layers": "layers",
-                                             "shared attention":
-                                             "shared_attn"}, both)
+    bd = serve_breakdown(dev, SERVE_HYBRID,
+                         {"Mamba2 layers": lambda m: m.layers,
+                          "shared attention": lambda m: [m.shared_attn]},
+                         both)
     check(bd["prefill_launches"] == {"ssd_chunked": Lh, "flash_fwd": n_app}
           and bd["decode_launches"] == {"ssd_chunked": 0,
                                         "flash_fwd": n_app},
@@ -1648,10 +1858,61 @@ def main() -> int:
     del bd
     torch.cuda.empty_cache()
 
+    # ----------------------- the MoE family, full width, 8 of 32 layers
+    # every earlier path's model is freed: 47.5 GB of weights must fit
+    log(f"before serve_mixtral: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated, "
+        f"{torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB reserved")
+    model = spec_model(dev, SERVE_MOE)
+    Lm = model.cfg.n_layers
+    # one attention call a layer in prefill and in each decode step; the
+    # experts run in plain products
+    drive("serve_mixtral", ("flash_fwd",), lambda: serve_path(
+        dev, SERVE_MOE, {"ssd_chunked": (0, 0), "flash_fwd": (Lm, Lm)},
+        params=model))
+    check(by_path["flash_fwd"]["serve_mixtral"] == Lm * SERVE_MOE["gen_len"]
+          and by_path["ssd_chunked"]["serve_mixtral"] == 0,
+          f"serve_mixtral: {by_path['flash_fwd']['serve_mixtral']} flash "
+          f"launches, expected {Lm} x {SERVE_MOE['gen_len']} passes")
+    torch.cuda.empty_cache()
+    bd = serve_breakdown(dev, SERVE_MOE,
+                         {"decoder layers": lambda m: m.layers,
+                          "MoE": lambda m: [lay.moe for lay in m.layers]},
+                         both, params=model)
+    check(bd["prefill_launches"] == {"ssd_chunked": 0, "flash_fwd": Lm}
+          and bd["decode_launches"] == {"ssd_chunked": 0, "flash_fwd": Lm},
+          f"serve_mixtral breakdown: launches {bd['prefill_launches']} a "
+          f"prefill, {bd['decode_launches']} a decode step")
+    log_breakdown("serve_mixtral", bd, inner=("MoE",))
+    for what, total, groups in (
+            ("warm prefill", bd["prefill_s"], bd["groups"]),
+            ("decode step under the hooks", bd["decode_hooked_s"],
+             bd["decode_groups"])):
+        moe_s = groups["MoE"]
+        attn_s = groups["decoder layers"] - moe_s
+        rest = total - groups["decoder layers"]
+        log(f"serve_mixtral {what} {total:.4f} s: attention (the layers "
+            f"less MoE: norms, projections, RoPE, K4) {attn_s:.4f} s "
+            f"({attn_s / total:.1%}), MoE (router, dispatch, experts, "
+            f"combine) {moe_s:.4f} s ({moe_s / total:.1%}), embedding, "
+            f"final norm and LM head {rest:.4f} s ({rest / total:.1%})")
+    k4g = k4["hd128_gqa"]
+    log(f"serve_mixtral: from the kernel phase, attention is {Lm} x "
+        f"{k4g['prefill']['ms']:.4f} ms = {Lm * k4g['prefill']['ms']:.3f} ms"
+        f" of the warm prefill "
+        f"({Lm * k4g['prefill']['ms'] / 1e3 / bd['prefill_s']:.1%}) and {Lm}"
+        f" x {k4g['decode']['ms']:.4f} ms = {Lm * k4g['decode']['ms']:.3f} "
+        f"ms of a decode step "
+        f"({Lm * k4g['decode']['ms'] / 1e3 / bd['decode_step_s']:.1%})")
+    moe_phase(dev, model.layers[0].moe, model.cfg)
+    del bd, model
+    torch.cuda.empty_cache()
+
     # ------------------------- the card's serve runs against the CPU's
     serve_vs_cpu(dev, SERVE_VS_CPU)
     serve_vs_cpu(dev, SERVE_DENSE_VS_CPU)
     serve_vs_cpu(dev, SERVE_HYBRID_VS_CPU)
+    serve_vs_cpu(dev, SERVE_MOE_VS_CPU)
 
     for name, k in kernels.items():
         k["launches"] = sum(by_path[name].values())

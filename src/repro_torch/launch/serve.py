@@ -4,16 +4,23 @@ pool, on the GPU unless told otherwise.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --reduced --device cpu
 
 Flow per batch, as in ``repro/launch/serve.py``: shared system prefixes
 register as *global* pages (content-hashed, deduplicated, ring-placed);
 each sequence's own context becomes *local* pages; prefill builds the
 KV cache (or the recurrent state), then tokens decode step by step.  The
 page-pool stats show the EdgeKV dedup win.  The dense family (the
-default, stablelm-3b; attention in the ``flash_fwd`` kernel), the hybrid
-(zamba2-1.2b; Mamba2's prefill scans in the ``ssd_chunked`` kernel, the
-shared attention block in ``flash_fwd``) and the SSM family
-(xlstm-125m; scans in ``ssd_chunked``) are ported.
+default, stablelm-3b; attention in the ``flash_fwd`` kernel), the MoE
+family (mixtral-8x7b, arctic-480b; attention in ``flash_fwd``, the
+experts' einsum dispatch in plain torch products, as the reference's),
+the hybrid (zamba2-1.2b; Mamba2's prefill scans in the ``ssd_chunked``
+kernel, the shared attention block in ``flash_fwd``) and the SSM family
+(xlstm-125m; scans in ``ssd_chunked``) are ported.  mixtral-8x7b at its
+32 layers is 186 GB of float32 weights and does not fit one 80 GB card:
+serve a depth-cut copy (``dataclasses.replace(cfg, n_layers=8)``) with
+``params=``.
 
 :func:`serve` does the work and returns what it measured; :func:`main`
 prints what the reference prints.

@@ -1,4 +1,4 @@
-"""The LLM side stack's models in PyTorch (the dense, hybrid and SSM
+"""The LLM side stack's models in PyTorch (the dense, MoE, hybrid and SSM
 families so far)."""
 from .model import (LanguageModel, ModelDims, dims_from_params, init_params,
                     padded_vocab)

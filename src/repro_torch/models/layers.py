@@ -11,7 +11,7 @@ the other.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,11 +75,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # ---------------------------------------------------------------------- MLP
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
-             dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
-    p = {"w_up": dense_init(gen, (d_model, d_ff), dtype),
-         "w_down": dense_init(gen, (d_ff, d_model), dtype)}
+             dtype: torch.dtype = torch.float32,
+             prefix_shape: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """``prefix_shape`` stacks the weights, as the MoE layer's experts
+    (E, D, F) and (E, F, D)."""
+    p = {"w_up": dense_init(gen, (*prefix_shape, d_model, d_ff), dtype),
+         "w_down": dense_init(gen, (*prefix_shape, d_ff, d_model), dtype)}
     if activation == "swiglu":
-        p["w_gate"] = dense_init(gen, (d_model, d_ff), dtype)
+        p["w_gate"] = dense_init(gen, (*prefix_shape, d_model, d_ff), dtype)
     return p
 
 

@@ -4,8 +4,10 @@
 whose ``state_dict`` keys follow the reference's parameter tree
 (``embed``, ``final_norm``, ``lm_head``, ``layers.<i>.attn.wq``,
 ``mlstm_layers.<i>.mlstm.wq``, ...; :mod:`.convert` maps one onto the
-other).  Three families are ported: the dense decoder (a stack of
-:class:`DenseBlock`, stablelm-3b), the hybrid (zamba2-1.2b: a stack of
+other).  Four families are ported: the dense decoder (a stack of
+:class:`DenseBlock`, stablelm-3b), the MoE family (the same stack with
+a :class:`~.moe.MoELayer` in place of each MLP, mixtral-8x7b and
+arctic-480b), the hybrid (zamba2-1.2b: a stack of
 :class:`~.ssm.Mamba2Block` and one shared-weight :class:`DenseBlock`
 applied after every ``shared_attn_every`` of them) and the SSM family
 (xLSTM: a stack of mLSTM layers with sLSTM layers at their configured
@@ -23,6 +25,7 @@ from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, HYBRID, MOE,
                                       SSM, VLM)
 from .attention import attn_apply, attn_init, decode_attention
 from .layers import apply_norm, dense_init, mlp_apply, mlp_init
+from .moe import MoELayer
 from .ssm import Mamba2Block, MLSTMBlock, SLSTMBlock
 
 
@@ -34,18 +37,19 @@ class ModelDims:
 
 
 # the ROADMAP.md item (queue 1 item 6) each unported family waits for
-NOT_PORTED = {MOE: "the MoE slice", VLM: "the audio and VLM families",
+NOT_PORTED = {VLM: "the audio and VLM families",
               AUDIO: "the audio and VLM families"}
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in (DENSE, HYBRID, SSM):
+    if cfg.family not in (DENSE, MOE, HYBRID, SSM):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
             f"PyTorch yet (ROADMAP.md, queue 1 item 6: "
             f"{NOT_PORTED.get(cfg.family, 'not planned')}); only the "
-            f"{DENSE!r} (stablelm-3b), {HYBRID!r} (zamba2-1.2b) and "
-            f"{SSM!r} (xlstm-125m) families are")
+            f"{DENSE!r} (stablelm-3b), {MOE!r} (mixtral-8x7b, "
+            f"arctic-480b), {HYBRID!r} (zamba2-1.2b) and {SSM!r} "
+            f"(xlstm-125m) families are")
 
 
 def model_dims(cfg: ArchConfig) -> ModelDims:
@@ -62,8 +66,9 @@ def padded_vocab(cfg: ArchConfig) -> int:
 
 class DenseBlock(nn.Module):
     """One pre-norm decoder layer of the dense family: ``x + attn(ln1
-    x)``, then ``x + MLP(ln2 x)``; the parameters keep the reference's
-    names (``ln1``, ``attn``, ``ln2``, ``mlp``)."""
+    x)``, then ``x + MLP(ln2 x)``; in the MoE family ``x + MoE(ln2 x)``.
+    The parameters keep the reference's names (``ln1``, ``attn``,
+    ``ln2``, and ``mlp`` or ``moe``)."""
 
     def __init__(self, cfg: ArchConfig, dims: ModelDims,
                  gen: torch.Generator, dtype: torch.dtype = torch.float32):
@@ -74,16 +79,30 @@ class DenseBlock(nn.Module):
         self.attn = nn.ParameterDict(attn_init(gen, D, dims.H, dims.K,
                                                dims.hd, dtype))
         self.ln2 = nn.Parameter(torch.ones(D, dtype=dtype))
-        self.mlp = nn.ParameterDict(mlp_init(gen, D, cfg.d_ff,
-                                             cfg.activation, dtype))
+        if cfg.family == MOE:
+            self.moe = MoELayer(gen, D, cfg.d_ff, cfg.n_experts,
+                                cfg.activation, dtype,
+                                dense_ff=(cfg.dense_ff
+                                          if cfg.moe_dense_residual else 0))
+        else:
+            self.mlp = nn.ParameterDict(mlp_init(gen, D, cfg.d_ff,
+                                                 cfg.activation, dtype))
 
-    def forward(self, x: torch.Tensor, state: Optional[dict] = None
+    def forward(self, x: torch.Tensor, state: Optional[dict] = None, *,
+                dispatch: str = "einsum",
+                capacity_factor: Optional[float] = None
                 ) -> Tuple[torch.Tensor, dict]:
         """Prefill (``state`` None): x (B, S, D) -> (x, {"k", "v"}), the
         layer's post-RoPE K and V (B, S, K, hd).  Decode: x (B, 1, D) with
         ``state`` {"k", "v"} (B, S_max, K, hd) caches and "len", the
         valid entries before this token -> (x, {"k", "v"}), the same
-        cache tensors, written in place."""
+        cache tensors, written in place.
+
+        The MoE family routes each prefill sequence as one group, (B, S,
+        D), and a decode step's whole batch as one, (1, B, D), as the
+        reference's prefill and ``_ffn_or_moe``, through ``dispatch``
+        ("einsum" or "sort") at ``capacity_factor`` (default the
+        config's); the caller sets the factor for each phase."""
         cfg, dims = self.cfg, self.dims
         hn = apply_norm(cfg.norm, x, self.ln1)
         kw = dict(n_heads=dims.H, n_kv=dims.K, hd=dims.hd,
@@ -94,9 +113,17 @@ class DenseBlock(nn.Module):
             y, k, v = decode_attention(dict(self.attn), hn, state["k"],
                                        state["v"], state["len"], **kw)
         x = x + y
-        x = x + mlp_apply(dict(self.mlp), apply_norm(cfg.norm, x, self.ln2),
-                          cfg.activation)
-        return x, {"k": k, "v": v}
+        hn = apply_norm(cfg.norm, x, self.ln2)
+        if cfg.family != MOE:
+            return x + mlp_apply(dict(self.mlp), hn, cfg.activation), {
+                "k": k, "v": v}
+        groups = hn if state is None else hn.reshape(1, -1, cfg.d_model)
+        y, _ = self.moe(groups, top_k=cfg.top_k, activation=cfg.activation,
+                        capacity_factor=(cfg.capacity_factor
+                                         if capacity_factor is None
+                                         else capacity_factor),
+                        dispatch=dispatch)
+        return x + y.reshape(hn.shape), {"k": k, "v": v}
 
 
 class LanguageModel(nn.Module):
@@ -112,7 +139,7 @@ class LanguageModel(nn.Module):
         self.final_norm = nn.Parameter(torch.ones(D, dtype=dtype))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(dense_init(gen, (D, V), dtype))
-        if cfg.family == DENSE:
+        if cfg.family in (DENSE, MOE):
             dims = model_dims(cfg)
             self.layers = nn.ModuleList(
                 DenseBlock(cfg, dims, gen, dtype)
@@ -172,7 +199,7 @@ def _logits(params: LanguageModel, cfg: ArchConfig,
 
 def dims_from_params(params: LanguageModel, cfg: ArchConfig) -> ModelDims:
     """Head counts as initialized, from the ``wq``/``wk`` widths of the
-    dense family's layers or the hybrid's shared block (head padding
+    dense and MoE families' layers or the hybrid's shared block (head padding
     included).  The SSM family has no attention and no head padding, so
     they are the config's."""
     require_ported(cfg)

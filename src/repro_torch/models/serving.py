@@ -1,10 +1,11 @@
 """Serving entry points: cache construction, prefill, single-token
 decode — the counterparts of ``repro/models/serving.py`` for the dense,
-hybrid and SSM families.
+MoE, hybrid and SSM families.
 
 Cache keys and shapes are the reference's (B = batch, L = layers):
 
-  dense:  k, v (L, B, S, K, hd)           float32; S = max_len, or the
+  dense, MoE:
+          k, v (L, B, S, K, hd)           float32; S = max_len, or the
                                           sliding window (a ring buffer)
   hybrid: conv (L, B, ck-1, C)            Mamba2's last ck-1 conv inputs
                                           (ck = conv width, C = d_in +
@@ -24,12 +25,17 @@ Cache keys and shapes are the reference's (B = batch, L = layers):
 
 :func:`prefill` returns a new cache.  :func:`decode_step` returns a new
 cache dict.  The SSM family's states in it are new tensors and the
-cache it was given stays as it was; the dense and hybrid caches are
+cache it was given stays as it was; the dense, MoE and hybrid caches are
 written **in place** (one slot a step of K/V caches that are gigabytes
 at full width, and the hybrid's per-layer states beside them), so the
 returned dict shares them with the given one.  The valid length stays
 on the device: a decode step reads it without a host sync.  Both run
 without autograd.
+
+The MoE family routes tokens as the reference does: a prefill groups
+them per sequence at the config's ``capacity_factor``, a decode step the
+whole batch as one group at ``max(capacity_factor, 2.0)``; ``dispatch``
+("einsum", the default, or "sort") picks the layer's dispatch.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, DENSE, HYBRID
+from repro_torch.configs.base import ArchConfig, DENSE, HYBRID, MOE
 from .model import (LanguageModel, _embed, _logits, _slstm_runs,
                     dims_from_params)
 from .ssm import HEAD_P
@@ -64,12 +70,12 @@ def init_cache(params: LanguageModel, cfg: ArchConfig, batch: int,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     c = {"len": zeros(dtype=torch.int32)}
-    if cfg.family in (DENSE, HYBRID):
+    if cfg.family in (DENSE, MOE, HYBRID):
         if max_len is None:
             raise ValueError(f"init_cache: the {cfg.family!r} family needs "
                              f"max_len")
         S = cache_len_for(cfg, max_len)
-    if cfg.family == DENSE:
+    if cfg.family in (DENSE, MOE):
         c["k"] = zeros(L, batch, S, dims.K, dims.hd, dtype=dtype)
         c["v"] = zeros(L, batch, S, dims.K, dims.hd, dtype=dtype)
         return c
@@ -136,11 +142,12 @@ def _store(dst: torch.Tensor, t: torch.Tensor) -> None:
         dst.copy_(torch.roll(t[:, -S_cache:], S % S_cache, dims=1))
 
 
-def _dense_prefill(params: LanguageModel, x: torch.Tensor,
-                   cache: Cache) -> torch.Tensor:
-    """The layers in order; each layer's K/V go into the cache."""
+def _dense_prefill(params: LanguageModel, x: torch.Tensor, cache: Cache,
+                   dispatch: str) -> torch.Tensor:
+    """The layers in order (MoE at the config's capacity factor); each
+    layer's K/V go into the cache."""
     for i, layer in enumerate(params.layers):
-        x, kv = layer(x)
+        x, kv = layer(x, dispatch=dispatch)
         _store(cache["k"][i], kv["k"])
         _store(cache["v"][i], kv["v"])
     return x
@@ -175,15 +182,18 @@ def _hybrid_stack(params: LanguageModel, cfg: ArchConfig, x: torch.Tensor,
 
 @torch.no_grad()
 def decode_step(params: LanguageModel, cfg: ArchConfig, cache: Cache,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-    """tokens (B, 1) int.  Returns (logits (B, V), new cache); the dense
-    and hybrid caches are updated in place."""
+                tokens: torch.Tensor, *, dispatch: str = "einsum"
+                ) -> Tuple[torch.Tensor, Cache]:
+    """tokens (B, 1) int.  Returns (logits (B, V), new cache); the dense,
+    MoE and hybrid caches are updated in place."""
     x = _embed(params, cfg, tokens)
     new = dict(cache)
-    if cfg.family == DENSE:
+    if cfg.family in (DENSE, MOE):
+        cf = max(cfg.capacity_factor, 2.0)
         for i, layer in enumerate(params.layers):
             x, _ = layer(x, state={"k": cache["k"][i], "v": cache["v"][i],
-                                   "len": cache["len"]})
+                                   "len": cache["len"]},
+                         dispatch=dispatch, capacity_factor=cf)
     elif cfg.family == HYBRID:
         x = _hybrid_stack(params, cfg, x, cache, decode=True)
     else:
@@ -194,17 +204,18 @@ def decode_step(params: LanguageModel, cfg: ArchConfig, cache: Cache,
 
 @torch.no_grad()
 def prefill(params: LanguageModel, cfg: ArchConfig, tokens: torch.Tensor, *,
-            max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+            max_len: Optional[int] = None, dispatch: str = "einsum"
+            ) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence forward that also builds the decode cache.  Returns
-    (logits (B, S, V), cache).  The dense and hybrid K/V caches hold
+    (logits (B, S, V), cache).  The dense, MoE and hybrid K/V caches hold
     ``max_len`` tokens (default: the prompt's); the SSM family ignores
     ``max_len``.  The scans of Mamba2 and mLSTM take chunks of
     ``min(128, S)`` tokens, as in the reference, which must divide S."""
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     cache = init_cache(params, cfg, B, max_len or S)
-    if cfg.family == DENSE:
-        x = _dense_prefill(params, x, cache)
+    if cfg.family in (DENSE, MOE):
+        x = _dense_prefill(params, x, cache, dispatch)
     elif cfg.family == HYBRID:
         x = _hybrid_stack(params, cfg, x, cache, decode=False)
     else:

@@ -414,6 +414,42 @@ def test_hybrid_serve_on_gpu_matches_cpu(cuda_device):
         "flash_fwd": {"prefill": 2, "decode": 2 * (gen - 1)}}
 
 
+def test_moe_serve_on_gpu_matches_cpu(cuda_device):
+    """reduced mixtral-8x7b (4 layers of 4 experts, one KV head, window 16
+    under a 48-token prompt) served on the card and on the CPU: the same
+    logits, every attention call in the kernel, one a layer per prefill
+    and per decode step; the experts in plain products."""
+    gen = 4
+    gpu = serve_on_both("mixtral-8x7b", cuda_device, requests=3,
+                        prompt_len=48, gen_len=gen, shared_prefix_len=16,
+                        seed=1)
+    assert gpu["launches"] == {
+        "ssd_chunked": {"prefill": 0, "decode": 0},
+        "flash_fwd": {"prefill": 4, "decode": 4 * (gen - 1)}}
+
+
+@pytest.mark.parametrize("cf", [1.0, 1.25, 8.0])
+def test_moe_einsum_equals_sort_on_gpu(cuda_device, cf):
+    """The two dispatches on the card drop the same pairs and agree
+    within 1e-5 scaled, and match the CPU's einsum dispatch."""
+    from repro_torch.models import moe
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    p = moe.moe_init(gen, 256, 512, 8, "swiglu", dense_ff=384)
+    x = torch.randn((2, 256, 256), generator=gen, device=cuda_device)
+    kw = dict(top_k=2, activation="swiglu", capacity_factor=cf)
+    ye, ae = moe.moe_apply_einsum(p, x, **kw)
+    ys, as_ = moe.moe_apply_sort(p, x, **kw)
+    torch.cuda.synchronize()
+    assert float((ye - ys).abs().max()) <= 1e-5 * max(
+        1.0, float(ye.abs().max()))
+    assert float(ae) == float(as_)
+    cpu = {k: ({n: w.cpu() for n, w in v.items()} if isinstance(v, dict)
+               else v.cpu()) for k, v in p.items()}
+    yc, _ = moe.moe_apply_einsum(cpu, x.cpu(), **kw)
+    assert float((ye.cpu() - yc).abs().max()) <= 1e-4 * max(
+        1.0, float(yc.abs().max()))
+
+
 def paged_inputs(B, K, G, hd, N, page, P_max, lengths, seed):
     """Normal q and pools, a table of random slots (entries past each
     length included), int32 lengths; on the CPU."""

@@ -130,7 +130,7 @@ def test_serve_teacher_forcing_replays_its_own_tokens():
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        serve("mixtral-8x7b", reduced=True, device="cpu")
+        serve("internvl2-76b", reduced=True, device="cpu")
     with pytest.raises(NotImplementedError, match="audio"):
         LanguageModel(reduced(get_config("seamless-m4t-large-v2")),
                       torch.Generator().manual_seed(0))
