@@ -87,6 +87,30 @@ The LLM serving path, ``repro_torch.launch.serve.serve``:
   smallest gap between a token's 2nd and 3rd router probability on the
   card, and how many expert choices the CPU made otherwise.
 
+The training path, ``repro_torch.train.loop.train_loop`` (before it, in
+the kernel phases, the gradient of flash attention: dq, dk and dv of
+``FlashAttention``, the forward on the flash kernel and the backward in
+torch ops, against float64 autograd of plain attention on the card at
+stablelm-3b's training shape and mixtral-8x7b's GQA, within 8x the plain
+float32 version's error, forward and backward timed):
+
+* ``train_stablelm``: full-width, full-depth stablelm-3b (2.8B random
+  weights drawn on the card), AdamW, 2 sequences of 1024 tokens from
+  the synthetic pipeline, no rematerialization, 4 steps: seconds a step
+  (median of steps 2 to 4), tokens per second, peak device memory,
+  every loss finite, the flash kernel's launches checked at 32 a step;
+  then the busy split of a warm step under torch.profiler (products,
+  the flash kernel, the backward's attention ops, the optimizer) and
+  the device's idle share;
+* ``train_vs_cpu``: stablelm-3b at full width cut to 2 layers, one
+  ``make_train_step`` on the card and on the CPU handed the card's
+  weights and batch: loss within ``TRAIN_LOSS_RTOL``, every parameter's
+  gradient present and within ``LOGIT_TOL`` scaled;
+* ``train_resume``: reduced stablelm-3b on the card, 10 steps straight
+  against 5 steps, a stop, one of 4 checkpoint hosts killed and a resume
+  to 10 through the EdgeKV ``QuorumCheckpointer``: every loss bitwise
+  equal.
+
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path and read just after, and a path that never launched its
 kernel fails.  The second-to-last line is a JSON object with each
@@ -178,6 +202,21 @@ PAGED_CASES = (("stablelm-3b", 32, 32, 80, 8, True),
                ("page 16", 32, 8, 128, 16, False),
                ("page 12", 32, 8, 128, 12, False))
 PAGED_SLOTS, PAGED_SEQ, PAGED_SHARED = 4096, 1056, 256
+# the training paths: full-width stablelm-3b (B 1 if B 2 does not fit);
+# the card against the CPU at 2 layers (loss relative, gradients scaled
+# as the logits, LOGIT_TOL); kill-and-resume on the reduced model
+TRAIN = dict(arch="stablelm-3b", batch=2, seq_len=1024, steps=4, lr=3e-4,
+             seed=0)
+TRAIN_VS_CPU = dict(arch="stablelm-3b", layers=2, batch=2, seq_len=128,
+                    seed=0)
+TRAIN_RESUME = dict(arch="stablelm-3b", batch=2, seq_len=64, seed=3)
+TRAIN_LOSS_RTOL = 1e-5
+# flash attention's gradient: (model, B, S, query heads, KV heads, head
+# width, window), causal; against float64 within GRAD_FACTOR x the plain
+# float32 version's error, as the GPU test holds the forward
+GRAD_SHAPES = (("stablelm-3b", 2, 1024, 32, 32, 80, 0),
+               ("mixtral-8x7b", 2, 1024, 32, 8, 128, 4096))
+GRAD_FACTOR = 8
 # head widths at which the flash phase also times the prefill, beside
 # stablelm-3b's 80
 FLASH_WIDTHS = (72, 128)
@@ -883,6 +922,316 @@ def flash_kernel_phase(card: dict, dev) -> dict:
         hd64={"prefill": out[64, "prefill"], "decode": out[64, decode]},
         hd128_gqa={"prefill": out[128, "prefill"],
                    "decode": out[128, decode]})
+
+
+def plain_attention(q, k, v, *, causal: bool, window: int):
+    """Softmax attention of q (B, S, H, hd) over k, v (B, S, K, hd) in the
+    inputs' dtype, K/V repeated to the query heads, the hidden keys
+    selected away: the oracle autograd differentiates."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import _mask
+    G = q.shape[2] // k.shape[2]
+    k, v = (t.repeat_interleave(G, 2) for t in (k, v))
+    S = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    mask = _mask(S, torch.arange(S, device=q.device), causal=causal,
+                 window=window, seq_q=S, seq_k=S)
+    p = torch.softmax(torch.where(mask, s, -torch.inf), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.where(mask, p, 0.0), v)
+
+
+def flash_grad_phase(card: dict, dev) -> dict:
+    """The gradient of flash attention at ``GRAD_SHAPES``: dq, dk, dv of
+    ``FlashAttention`` (the forward on the flash kernel, the backward
+    ``attention_grads`` in torch ops) against float64 autograd of
+    :func:`plain_attention` on the same inputs, each within
+    ``GRAD_FACTOR`` x the float32 plain version's own error; then the
+    forward (the kernel) and the backward timed, the backward beside its
+    bound (its five products, S = q kᵀ again, dV, dP, dQ, dK, over the
+    visible pairs; q, k, v, o, dO read and dq, dk, dv written once) and
+    its peak memory, and forward plus backward beside torch's
+    scaled_dot_product_attention."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        attention_grads, flash_attention, flash_fwd)
+    out = {}
+    for model, B, S, H, K, hd, window in GRAD_SHAPES:
+        gen = torch.Generator(dev).manual_seed(9)
+        q = torch.randn((B, S, H, hd), generator=gen, device=dev)
+        k, v = (torch.randn((B, S, K, hd), generator=gen, device=dev)
+                for _ in range(2))
+        do = torch.randn((B, S, H, hd), generator=gen, device=dev)
+
+        def grads(fn, dtype):
+            xs = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+            o = fn(*xs, causal=True, window=window)
+            return [g.detach() for g in
+                    torch.autograd.grad(o, xs, do.to(dtype))]
+
+        want = grads(plain_attention, torch.float64)
+        plain = grads(plain_attention, torch.float32)
+        got = grads(flash_attention, torch.float32)
+        errs = {}
+        for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+            err = float((g.double() - w).abs().max())
+            err_plain = float((p.double() - w).abs().max())
+            check(err <= GRAD_FACTOR * err_plain,
+                  f"flash gradient {model} {name}: max_abs_err {err} > "
+                  f"{GRAD_FACTOR} x the plain float32 version's "
+                  f"{err_plain}")
+            errs[name] = (err, err_plain)
+        del want, plain, got
+        o = flash_fwd(q, k, v, causal=True, window=window)
+        fwd_ms = time_ms(lambda: flash_fwd(q, k, v, causal=True,
+                                           window=window))
+        bwd_ms = time_ms(lambda: attention_grads(
+            q, k, v, o, do, causal=True, window=window), reps=5, windows=3)
+        peak = call_peak_mb(lambda: attention_grads(
+            q, k, v, o, do, causal=True, window=window), dev)
+        # the window (4096) does not bind at S 1024: the causal pairs
+        _, f_ops = flash_work(B, S, H, K, hd, S, True)
+        ops = f_ops * 5 // 2
+        nbytes = 4 * (4 * B * S * H * hd + 4 * B * S * K * hd)
+        b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        both_ms = time_ms(lambda: torch.autograd.grad(
+            flash_attention(*xs, causal=True, window=window), xs, do),
+            reps=5, windows=3)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=H != K),
+            (qt, kt, vt), dot), reps=5, windows=3)
+        log(f"flash gradient {model} (B {B}, S {S}, H {H}, K {K}, hd {hd}, "
+            f"causal, window {window}): "
+            + ", ".join(f"{n} max_abs_err {e:.3e} (plain float32 {p:.3e}, "
+                        f"{e / p:.2f}x)" for n, (e, p) in errs.items())
+            + f" against float64 autograd, bound {GRAD_FACTOR}x; forward "
+            f"(flash_fwd) {fwd_ms:.4f} ms, backward (torch ops) "
+            f"{bwd_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{ops / 1e9:.2f} GFLOP over the visible pairs, "
+            f"{2 * ops / 1e9:.2f} over all the backward computes, "
+            f"{nbytes / 1e6:.1f} MB), peak {peak:.1f} MB a call; forward "
+            f"and backward through autograd {both_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms (scaled_dot_product_attention forward and "
+            f"backward, float32)")
+        out[model] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, bound_ms=b_ms,
+                          bound_by=b_by, peak_mb=peak, fwd_bwd_ms=both_ms,
+                          library_ms=lib_ms,
+                          max_abs_err={n: e for n, (e, _) in errs.items()})
+        del q, k, v, do, o, xs, qt, kt, vt
+    return out
+
+
+def train_stablelm(dev, spec: dict) -> dict:
+    """``train_loop`` on ``spec``'s model at full width and depth on the
+    card, from weights drawn there; with B 1 if B 2 does not fit.
+    Returns the model, the batch and the loop's result."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train.loop import train_loop
+    cfg = get_config(spec["arch"])
+    B = spec["batch"]
+    while True:
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = init_params(cfg, spec["seed"], device=dev)
+        try:
+            res = train_loop(cfg, steps=spec["steps"], batch=B,
+                             seq_len=spec["seq_len"], lr=spec["lr"],
+                             seed=spec["seed"], device=dev, params=model)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            check(B > 1, f"train_stablelm: B 1 does not fit: {e}")
+            log(f"train_stablelm: B {B} does not fit ({e}); B 1")
+            del model
+            torch.cuda.empty_cache()
+            B = 1
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(len(res.losses) == spec["steps"]
+          and all(math.isfinite(x) for x in res.losses),
+          f"train_stablelm: losses {res.losses}")
+    step_s = statistics.median(res.step_s[1:])
+    log(f"train_stablelm ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
+        f"parameters, AdamW, B {B} x S {spec['seq_len']}, no remat): "
+        f"losses " + ", ".join(f"{x:.6f}" for x in res.losses)
+        + f"; step seconds " + ", ".join(f"{t:.4f}" for t in res.step_s)
+        + f"; {step_s:.4f} s a step (median of steps 2 to "
+        f"{spec['steps']}), {B * spec['seq_len'] / step_s:.1f} tokens/s; "
+        f"peak device memory {peak:.3f} GiB")
+    return dict(model=model, batch=B, res=res, step_s=step_s, peak=peak)
+
+
+def train_breakdown(dev, spec: dict, model, B: int, step_s: float) -> None:
+    """Where a warm training step of ``model`` goes on the device, from
+    torch.profiler: one whole ``make_train_step`` step (busy, kernels,
+    the flash kernel's time, the products'), then the optimizer alone
+    (clipping and AdamW on one step's gradients) and the backward's
+    attention ops alone (``attention_grads`` once a layer at the step's
+    shape) in windows of their own; the products less those of the
+    attention window, and the rest.  The idle share is taken against the
+    loop's untraced median step."""
+    import torch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention import attention_grads, flash_fwd
+    from repro_torch.models import forward_train
+    from repro_torch.optim import adamw, clip_by_global_norm
+    from repro_torch.train import make_train_step
+    cfg, S = model.cfg, spec["seq_len"]
+    opt = adamw(spec["lr"])
+    step_fn, _ = make_train_step(cfg, opt, remat=False, chunk=256)
+    named = dict(model.named_parameters())
+    state = opt.init(named)
+    batch = {k: torch.as_tensor(v, device=dev).long() for k, v in
+             SyntheticTokens(cfg, B, S, spec["seed"]).batch_at(100).items()}
+    step_fn(model, state, batch)                              # warm-up
+    flash_fwd.launches = 0
+    busy, n, kinds = device_busy(lambda: step_fn(model, state, batch))
+    check(flash_fwd.launches == cfg.n_layers,
+          f"train_stablelm breakdown: {flash_fwd.launches} flash launches "
+          f"a step")
+    loss = forward_train(model, cfg, batch, remat=False)
+    grads = dict(zip(named, torch.autograd.grad(loss,
+                                                list(named.values()))))
+    del loss
+    opt_busy, opt_n, _ = device_busy(lambda: opt.update(
+        clip_by_global_norm(grads, 1.0)[0], state, named))
+    del grads, state
+    torch.cuda.empty_cache()
+    gen = torch.Generator(dev).manual_seed(1)
+    H, hd = cfg.n_heads, cfg.hd
+    q, k, v, do = (torch.randn((B, S, H, hd), generator=gen, device=dev)
+                   for _ in range(4))
+    o = flash_fwd(q, k, v, causal=True)
+    att_busy, att_n, att_kinds = device_busy(lambda: [
+        attention_grads(q, k, v, o, do, causal=True, window=0)
+        for _ in range(cfg.n_layers)])
+    if busy is None or opt_busy is None or att_busy is None:
+        log("train_stablelm busy split: not measured (the profiler saw no "
+            "kernels)")
+        return
+    k4 = kinds.get("flash_fwd", 0.0)
+    products = kinds.get("products", 0.0) - att_kinds.get("products", 0.0)
+    rest = busy - k4 - products - att_busy - opt_busy
+    wall = step_s * 1e3
+    parts = (("products (projections, MLP, LM head, forward and backward)",
+              products), ("flash_fwd (K4)", k4),
+             ("the backward's attention ops", att_busy),
+             ("optimizer (clip and AdamW)", opt_busy), ("the rest", rest))
+    log(f"train_stablelm warm step under torch.profiler: {n} kernels, "
+        f"device busy {busy:.3f} ms against {wall:.3f} ms of untraced "
+        f"step: the device idles {1 - busy / wall:.1%}; busy split "
+        + ", ".join(f"{name} {t:.3f} ms ({t / busy:.1%})"
+                    for name, t in parts)
+        + f"; the optimizer's window {opt_n} kernels, the attention "
+        f"backward's {att_n} ({cfg.n_layers} calls, its products "
+        f"{att_kinds.get('products', 0.0):.3f} ms); busy by kind in the "
+        f"step " + ", ".join(f"{k} {t:.3f} ms" for k, t in sorted(
+            kinds.items(), key=lambda kv: -kv[1])))
+
+
+def train_vs_cpu(dev, spec: dict) -> None:
+    """One ``make_train_step`` step of ``spec``'s model (full width, cut
+    to ``spec["layers"]``) on the card and on the CPU, the CPU handed the
+    card's weights and the same batch: the losses within
+    ``TRAIN_LOSS_RTOL``, and every parameter's gradient (as the optimizer
+    receives it, after clipping) present and within ``LOGIT_TOL`` x max
+    |CPU's|."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import init_params
+    from repro_torch.optim import Optimizer, adamw
+    from repro_torch.train import make_train_step
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["layers"])
+    model = init_params(cfg, spec["seed"], device=dev)
+    cpu_model = copy.deepcopy(model).cpu()
+    batch = SyntheticTokens(cfg, spec["batch"], spec["seq_len"],
+                            spec["seed"]).batch_at(0)
+
+    def step(params, device):
+        seen = {}
+        base = adamw(3e-4)
+
+        def update(grads, state, named):
+            seen.update({n: g.detach().to("cpu", copy=True)
+                         for n, g in grads.items()})
+            return base.update(grads, state, named)
+
+        opt = Optimizer(base.init, update)
+        fn, _ = make_train_step(cfg, opt, remat=False, chunk=256)
+        state = opt.init(dict(params.named_parameters()))
+        _, _, m = fn(params, state, {k: torch.as_tensor(v, device=device)
+                                     .long() for k, v in batch.items()})
+        return float(m["loss"]), float(m["grad_norm"]), seen
+
+    loss, gnorm, g_card = step(model, dev)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_gnorm, g_cpu = step(cpu_model, "cpu")
+    cpu_s = time.perf_counter() - t0
+    what = f"{cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}) vs CPU"
+    names = [n for n, _ in cpu_model.named_parameters()]
+    check(sorted(g_card) == sorted(g_cpu) == sorted(names),
+          f"{what}: parameters without a gradient")
+    rel = abs(loss - cpu_loss) / abs(cpu_loss)
+    check(rel <= TRAIN_LOSS_RTOL, f"{what}: loss {loss} vs {cpu_loss}")
+    worst, worst_name = 0.0, ""
+    for n in names:
+        scale = float(g_cpu[n].abs().max())
+        check(scale > 0 and bool(torch.isfinite(g_card[n]).all()),
+              f"{what}: gradient of {n} zero or not finite")
+        err = float((g_card[n] - g_cpu[n]).abs().max()) / scale
+        check(err <= LOGIT_TOL, f"{what}: gradient of {n} {err} > "
+              f"{LOGIT_TOL} scaled")
+        if err > worst:
+            worst, worst_name = err, n
+    log(f"{what} (B {spec['batch']} x S {spec['seq_len']}, one "
+        f"make_train_step, the card's weights and batch): loss {loss:.7f} "
+        f"vs {cpu_loss:.7f} ({rel:.3e} relative, bound "
+        f"{TRAIN_LOSS_RTOL}); grad norm {gnorm:.6f} vs {cpu_gnorm:.6f}; "
+        f"all {len(names)} parameters have a gradient, the largest "
+        f"scaled error {worst:.3e} ({worst_name}, bound {LOGIT_TOL}); CPU "
+        f"step {cpu_s:.1f} s")
+
+
+def train_resume(dev, spec: dict) -> None:
+    """Reduced ``spec`` model on the card: ``train_loop`` for 10 steps
+    straight, and for 5 steps into a 4-host ``QuorumCheckpointer`` in a
+    temporary directory, one host killed, then resumed to 10: every loss
+    bitwise equal."""
+    import tempfile
+    from repro_torch.checkpoint import QuorumCheckpointer
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.train.loop import train_loop
+    cfg = reduced(get_config(spec["arch"]))
+    kw = dict(batch=spec["batch"], seq_len=spec["seq_len"],
+              seed=spec["seed"], device=dev)
+    ref = train_loop(cfg, steps=10, **kw)
+    with tempfile.TemporaryDirectory(prefix="train_resume_") as root:
+        ck = QuorumCheckpointer(root, n_hosts=4, replication=3)
+        a = train_loop(cfg, steps=5, ckpt=ck, ckpt_every=100,
+                       async_ckpt=False, **kw)
+        check(ck.latest_step() == 5, "train_resume: no step-5 checkpoint")
+        ck.kill_host(1)
+        b = train_loop(cfg, steps=10, ckpt=ck, ckpt_every=100,
+                       async_ckpt=False, **kw)
+    check(b.restored_from == 5, f"train_resume: resumed from "
+          f"{b.restored_from}")
+    check(a.losses + b.losses == ref.losses,
+          f"train_resume: {a.losses + b.losses} != {ref.losses}")
+    log(f"train_resume ({cfg.name}, B {spec['batch']} x S "
+        f"{spec['seq_len']}): 10 steps straight and 5 + a stop + host1 of "
+        f"4 killed + a resume from step {b.restored_from} to 10 through "
+        f"the quorum checkpointer: all 10 losses bitwise equal (last "
+        f"{ref.losses[-1]!r})")
 
 
 def paged_tables(B: int, page: int, rng) -> tuple:
@@ -1640,6 +1989,7 @@ def main() -> int:
     kernels = kernel_phase(card, dev)
     kernels["ssd_chunked"] = ssd_kernel_phase(card, dev)
     kernels["flash_fwd"] = flash_kernel_phase(card, dev)
+    kernels["flash_fwd"]["gradient"] = flash_grad_phase(card, dev)
     kernels["paged_decode"] = paged_kernel_phase(card, dev)
     wrappers = {"maxplus_chunked": mp_kernel.maxplus_chunked,
                 "maxplus_seq": mp_kernel.maxplus_seq,
@@ -1913,6 +2263,33 @@ def main() -> int:
     serve_vs_cpu(dev, SERVE_DENSE_VS_CPU)
     serve_vs_cpu(dev, SERVE_HYBRID_VS_CPU)
     serve_vs_cpu(dev, SERVE_MOE_VS_CPU)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- training, full width and depth
+    tcfg = get_config(TRAIN["arch"])
+    tr = drive("train_stablelm", ("flash_fwd",),
+               lambda: train_stablelm(dev, TRAIN))
+    n_flash = by_path["flash_fwd"]["train_stablelm"]
+    check(n_flash == tcfg.n_layers * TRAIN["steps"],
+          f"train_stablelm: {n_flash} flash launches, expected "
+          f"{tcfg.n_layers} x {TRAIN['steps']} steps")
+    log(f"train_stablelm: flash_fwd {n_flash / TRAIN['steps']:g} launches "
+        f"a step (expected {tcfg.n_layers}, one a layer's forward; the "
+        f"backward launches none)")
+    train_breakdown(dev, TRAIN, tr["model"], tr["batch"], tr["step_s"])
+    g = kernels["flash_fwd"]["gradient"][TRAIN["arch"]]
+    log(f"train_stablelm: from the gradient phase, the backward's attention "
+        f"is {tcfg.n_layers} x {g['bwd_ms']:.4f} ms = "
+        f"{tcfg.n_layers * g['bwd_ms']:.3f} ms a step and K4 "
+        f"{tcfg.n_layers} x {g['fwd_ms']:.4f} ms = "
+        f"{tcfg.n_layers * g['fwd_ms']:.3f} ms, of {tr['step_s'] * 1e3:.3f}"
+        f" ms")
+    del tr
+    torch.cuda.empty_cache()
+    drive("train_vs_cpu", ("flash_fwd",),
+          lambda: train_vs_cpu(dev, TRAIN_VS_CPU))
+    drive("train_resume", ("flash_fwd",),
+          lambda: train_resume(dev, TRAIN_RESUME))
 
     for name, k in kernels.items():
         k["launches"] = sum(by_path[name].values())

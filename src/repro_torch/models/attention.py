@@ -8,7 +8,7 @@ online-softmax version on the CPU.  Prefill is causal self-attention
 valid prefix (:func:`decode_attention`: ``causal=False`` and the true
 length ``kv_len``, the TPU kernel's ``seq_k``).
 
-Not ported: the int8 KV cache (``kv_scales``, ROADMAP queue 1 item 6),
+Not ported: the int8 KV cache (``kv_scales``, ROADMAP section 1 item 4),
 which the serve path does not use; cross-attention (the audio family).
 """
 from __future__ import annotations
@@ -88,7 +88,7 @@ def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     if kv_scales is not None:
         raise NotImplementedError(
             "int8 KV cache (kv_scales) is not ported yet (ROADMAP.md, "
-            "queue 1 item 6)")
+            "section 1 item 4)")
     B = x.shape[0]
     S_max = k_cache.shape[1]
     q = (x @ p["wq"]).reshape(B, 1, n_heads, hd)

@@ -8,12 +8,14 @@ layer.  So ``tree["layers"]["attn"]["wq"][i]`` is ``layers.<i>.attn.wq``
 and ``tree["slstm_layers"][i]["slstm"]["w_i"]`` is
 ``slstm_layers.<i>.slstm.w_i``; a single layer, the hybrid's shared
 block, is one tree and one module (``tree["shared_attn"]["attn"]["wq"]``
-is ``shared_attn.attn.wq``).  The leaves are numpy arrays (the tests
+is ``shared_attn.attn.wq``).  :func:`reference_leaf` names the
+reference's leaf (and layer index) of a parameter, for the optimizers
+and the checkpointer that keep the reference's layout.  The leaves are numpy arrays (the tests
 hand the reference's arrays over as numpy).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +30,28 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
             _flatten(v, f"{prefix}{k}.", out)
     else:
         out[prefix[:-1]] = np.asarray(tree)
+
+
+def reference_leaf(name: str) -> Tuple[str, Optional[int]]:
+    """The reference's leaf key of the port's parameter ``name`` (its
+    tree path, dict keys and list indices joined with "/") and, for a
+    stacked layer, the layer's index along that leaf's leading axis:
+    ``layers.3.attn.wq`` -> ("layers/attn/wq", 3), ``slstm_layers.1.ln``
+    -> ("slstm_layers/1/ln", None), ``embed`` -> ("embed", None)."""
+    parts = name.split(".")
+    if parts[0] in STACKED:
+        return "/".join([parts[0], *parts[2:]]), int(parts[1])
+    return "/".join(parts), None
+
+
+def reference_leaves(names: Iterable[str]) -> Dict[str, List[str]]:
+    """Each reference leaf key -> the port's parameter names that make
+    it up, in layer order (one name unless the leaf is a stack)."""
+    out: Dict[str, Dict[int, str]] = {}
+    for name in names:
+        key, idx = reference_leaf(name)
+        out.setdefault(key, {})[-1 if idx is None else idx] = name
+    return {k: [v[i] for i in sorted(v)] for k, v in out.items()}
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

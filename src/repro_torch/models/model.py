@@ -12,19 +12,26 @@ arctic-480b), the hybrid (zamba2-1.2b: a stack of
 applied after every ``shared_attn_every`` of them) and the SSM family
 (xLSTM: a stack of mLSTM layers with sLSTM layers at their configured
 indices); every other family raises ``NotImplementedError``.
+
+:func:`forward_train` is the training loss of the dense and MoE
+families, differentiable through autograd (attention's gradient is
+``kernels.flash_attention.FlashAttention``'s).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, HYBRID, MOE,
                                       SSM, VLM)
 from .attention import attn_apply, attn_init, decode_attention
-from .layers import apply_norm, dense_init, mlp_apply, mlp_init
+from .layers import (apply_norm, cross_entropy_loss, dense_init, mlp_apply,
+                     mlp_init)
 from .moe import MoELayer
 from .ssm import Mamba2Block, MLSTMBlock, SLSTMBlock
 
@@ -36,7 +43,7 @@ class ModelDims:
     hd: int
 
 
-# the ROADMAP.md item (queue 1 item 6) each unported family waits for
+# the ROADMAP.md item (section 1 item 4) each unported family waits for
 NOT_PORTED = {VLM: "the audio and VLM families",
               AUDIO: "the audio and VLM families"}
 
@@ -45,7 +52,7 @@ def require_ported(cfg: ArchConfig) -> None:
     if cfg.family not in (DENSE, MOE, HYBRID, SSM):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"PyTorch yet (ROADMAP.md, queue 1 item 6: "
+            f"PyTorch yet (ROADMAP.md, section 1 item 4: "
             f"{NOT_PORTED.get(cfg.family, 'not planned')}); only the "
             f"{DENSE!r} (stablelm-3b), {MOE!r} (mixtral-8x7b, "
             f"arctic-480b), {HYBRID!r} (zamba2-1.2b) and {SSM!r} "
@@ -96,7 +103,8 @@ class DenseBlock(nn.Module):
         layer's post-RoPE K and V (B, S, K, hd).  Decode: x (B, 1, D) with
         ``state`` {"k", "v"} (B, S_max, K, hd) caches and "len", the
         valid entries before this token -> (x, {"k", "v"}), the same
-        cache tensors, written in place.
+        cache tensors, written in place.  Both dicts also hold "aux",
+        the MoE layer's load-balancing loss (0.0 in the dense family).
 
         The MoE family routes each prefill sequence as one group, (B, S,
         D), and a decode step's whole batch as one, (1, B, D), as the
@@ -116,14 +124,15 @@ class DenseBlock(nn.Module):
         hn = apply_norm(cfg.norm, x, self.ln2)
         if cfg.family != MOE:
             return x + mlp_apply(dict(self.mlp), hn, cfg.activation), {
-                "k": k, "v": v}
+                "k": k, "v": v, "aux": 0.0}
         groups = hn if state is None else hn.reshape(1, -1, cfg.d_model)
-        y, _ = self.moe(groups, top_k=cfg.top_k, activation=cfg.activation,
-                        capacity_factor=(cfg.capacity_factor
-                                         if capacity_factor is None
-                                         else capacity_factor),
-                        dispatch=dispatch)
-        return x + y.reshape(hn.shape), {"k": k, "v": v}
+        y, aux = self.moe(groups, top_k=cfg.top_k,
+                          activation=cfg.activation,
+                          capacity_factor=(cfg.capacity_factor
+                                           if capacity_factor is None
+                                           else capacity_factor),
+                          dispatch=dispatch)
+        return x + y.reshape(hn.shape), {"k": k, "v": v, "aux": aux}
 
 
 class LanguageModel(nn.Module):
@@ -185,9 +194,40 @@ def _slstm_runs(cfg: ArchConfig) -> List[Tuple[int, Optional[int]]]:
     return runs
 
 
+class _Lookup(torch.autograd.Function):
+    """``table[tokens]`` with a backward that gives the same bits on
+    every run.  Indexing's own backward adds the rows of a repeated token
+    with atomics on CUDA, in an order that changes from run to run, and a
+    resumed run would then drift from an uninterrupted one.  Here each
+    distinct token's gradient row is one matrix product of a 0/1 matrix
+    (distinct tokens x positions) with the positions' gradients, and the
+    rows go to distinct table rows, so nothing is accumulated twice in
+    one place.  The port's training path is deterministic by this
+    formulation, not by ``torch.use_deterministic_algorithms``.  The
+    product costs 2 x distinct tokens x positions x d_model operations:
+    21 GFLOP for stablelm-3b's 2 x 1024 tokens, growing with the square
+    of the batch's tokens."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape = table.shape
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        tokens, = ctx.saved_tensors
+        uniq, inv = torch.unique(tokens.reshape(-1), return_inverse=True)
+        hits = (torch.arange(len(uniq), device=inv.device)[:, None]
+                == inv[None, :]).to(grad.dtype)
+        out = grad.new_zeros(ctx.table_shape)
+        out[uniq] = hits @ grad.reshape(-1, grad.shape[-1])
+        return out, None
+
+
 def _embed(params: LanguageModel, cfg: ArchConfig,
            tokens: torch.Tensor) -> torch.Tensor:
-    return params.embed[tokens]
+    return _Lookup.apply(params.embed, tokens)
 
 
 def _logits(params: LanguageModel, cfg: ArchConfig,
@@ -210,3 +250,49 @@ def dims_from_params(params: LanguageModel, cfg: ArchConfig) -> ModelDims:
     hd = cfg.hd
     return ModelDims(attn["wq"].shape[-1] // hd, attn["wk"].shape[-1] // hd,
                      hd)
+
+
+def param_count_tree(params: LanguageModel) -> int:
+    """The model's parameters, as the reference counts its tree's."""
+    return sum(math.prod(t.shape) for t in params.parameters())
+
+
+def _train_layer(layer: DenseBlock, x: torch.Tensor, dispatch: str
+                 ) -> Tuple[torch.Tensor, Union[float, torch.Tensor]]:
+    x, out = layer(x, dispatch=dispatch)
+    return x, out["aux"]
+
+
+def forward_train(params: LanguageModel, cfg: ArchConfig,
+                  batch: Dict[str, torch.Tensor], *,
+                  dispatch: str = "einsum", remat: bool = False,
+                  chunk: int = 1024) -> torch.Tensor:
+    """The training loss of ``batch`` (tokens and labels, (B, S) ints):
+    embedding, the layer stack, final norm, LM head over the padded
+    vocab, the mean token cross-entropy, plus 0.01 times the MoE layers'
+    load-balancing loss summed over the layers, as the reference's.
+
+    ``remat`` recomputes each layer's activations in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``
+    does.  ``chunk``, the KV chunk of the reference's ``jnp`` attention,
+    is taken and unused: the kernel and its plain version tile KV
+    themselves.  The hybrid and SSM families raise: their scans have no
+    gradient yet."""
+    if cfg.family in (HYBRID, SSM):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family needs the SSD "
+            f"scan's gradient, which is not ported yet (ROADMAP.md, "
+            f"section 1 item 5: the hybrid and SSM families' training)")
+    require_ported(cfg)
+    del chunk
+    x = _embed(params, cfg, batch["tokens"])
+    aux: Union[float, torch.Tensor] = 0.0
+    for layer in params.layers:
+        if remat:
+            x, a = checkpoint(_train_layer, layer, x, dispatch,
+                              use_reentrant=False)
+        else:
+            x, a = _train_layer(layer, x, dispatch)
+        aux = aux + a
+    loss = cross_entropy_loss(_logits(params, cfg, x), batch["labels"])
+    return loss + 0.01 * aux

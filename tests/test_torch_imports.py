@@ -61,6 +61,17 @@ def test_serving_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_training_imports_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "import repro_torch.launch.train, repro_torch.train.loop, "
+            "repro_torch.checkpoint, repro_torch.optim, repro_torch.data; "
+            "assert 'repro' not in sys.modules")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_serve_defaults_to_the_gpu():
     from repro_torch.device import resolve_device
     from repro_torch.launch.serve import serve

@@ -369,6 +369,56 @@ def test_flash_tile_is_float32_accurate(cuda_device):
     assert err <= 8 * err_plain, (err, err_plain)
 
 
+def attention64(q, k, v, causal, window):
+    """Softmax attention in float64 over K/V repeated to the query heads,
+    the hidden keys selected away: the gradients' oracle (autograd)."""
+    from repro_torch.kernels.flash_attention.ref import _mask
+    G = q.shape[2] // k.shape[2]
+    k, v = k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)
+    S = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    mask = _mask(S, torch.arange(S), causal=causal, window=window,
+                 seq_q=S, seq_k=S)
+    p = torch.softmax(torch.where(mask, s, -torch.inf), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.where(mask, p, 0.0), v)
+
+
+@pytest.mark.parametrize("H,K,hd,causal,window", [
+    (4, 4, 80, True, 0),        # stablelm-3b's heads
+    (8, 2, 128, True, 64),      # mixtral-8x7b's GQA under a window
+    (4, 1, 128, False, 0)])     # MQA, bidirectional
+def test_flash_gradient_is_float32_accurate(cuda_device, H, K, hd, causal,
+                                            window):
+    """FlashAttention's dq, dk and dv on the card (the forward K4, the
+    backward in torch ops from K4's output) against float64 autograd of
+    plain attention: within 8x the plain float32 version's error on the
+    CPU, as test_flash_tile_is_float32_accurate holds the forward.  The
+    forward launches K4 once; the backward launches no kernel of ours."""
+    rng = np.random.default_rng(23)
+    B, S = 2, 256
+    q = rng.standard_normal((B, S, H, hd))
+    k, v = (rng.standard_normal((B, S, K, hd)) for _ in range(2))
+    do = rng.standard_normal((B, S, H, hd))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(attention64(*leaves, causal, window), leaves,
+                               torch.from_numpy(do))
+
+    def grads(dev):
+        xs = [torch.from_numpy(x).float().to(dev).requires_grad_()
+              for x in (q, k, v)]
+        o = flash_attention(*xs, causal=causal, window=window)
+        return [g.cpu().double() for g in torch.autograd.grad(
+            o, xs, torch.from_numpy(do).float().to(dev))]
+
+    plain = grads("cpu")
+    before = flash_fwd.launches
+    got = grads(cuda_device)
+    assert flash_fwd.launches == before + 1
+    for name, g, p, w in zip("qkv", got, plain, want):
+        err, err_plain = (float((x - w).abs().max()) for x in (g, p))
+        assert err <= 8 * err_plain, (name, err, err_plain)
+
+
 def test_flash_wrapper_counts_and_rejects(cuda_device):
     q, k, v = (t.to(cuda_device) for t in flash_inputs(1, 8, 8, 4, 2, 16, 0))
     before = flash_fwd.launches
