@@ -13,8 +13,11 @@ stage's time from torch.profiler, the peak device memory of a call, and
 one request's mLSTM scans too), flash attention at the dense and hybrid
 serve paths' prefill (causal) and decode (one query over the cache's
 valid prefix) shapes (heads of 80 and of 64, and mixtral-8x7b's 32
-query heads of 128 over 8 KV heads, also under a binding window), paged
-decode attention at stablelm-3b's decode and mixtral-8x7b's GQA shape
+query heads of 128 over 8 KV heads, also under a binding window, and
+seamless-m4t-large-v2's five calls at 16 heads of 64: encoder
+self-attention, decoder self-attention, cross-attention in prefill, and
+the decoder's two decode calls, with a partial-tile cross-attention and
+a cross decode over 1003 frames checked too), paged decode attention at stablelm-3b's decode and mixtral-8x7b's GQA shape
 (timed; also against flash attention over the same tokens held
 contiguously), granite-20b's MQA shape and pages of 16 and 12 tokens.
 Then it drives the port's main paths through their entry points.  The
@@ -71,6 +74,15 @@ The LLM serving path, ``repro_torch.launch.serve.serve``:
   prefill and decode step into attention and MoE; then one of its
   full-width MoE layers alone at the prefill and decode shapes, einsum
   against sort dispatch within ``MOE_TOL``, each timed;
+* ``serve_seamless``: seamless-m4t-large-v2 at full width and depth (24
+  encoder and 24 decoder layers, d_model 1024, 16 heads of 64, SwiGLU
+  8192, vocab 256,206 padded to 256,256; 2.04B random weights drawn on
+  the card), the same requests with 1024 frame embeddings each (the
+  frontend is a stub; frames from the seed), with the flash kernel's
+  launches checked (72 a prefill: encoder self-attention, decoder
+  self-attention and cross-attention in each layer; 48 a decode step)
+  and the split of a warm prefill and decode step into encoder layers,
+  decoder self-attention and MLP, and cross-attention;
 * ``paged_stablelm``: the EdgeKV page pool's data plane at full width:
   the same stablelm-3b batch through ``prefill`` and 31 decode steps,
   its pages registered as ``serve`` registers them, each layer's KV
@@ -83,7 +95,9 @@ The LLM serving path, ``repro_torch.launch.serve.serve``:
   ``LOGIT_TOL``: xlstm-125m whole at 2 requests x 256 tokens,
   stablelm-3b and mixtral-8x7b at full width cut to 2 layers and
   zamba2-1.2b at full width cut to 7 (one shared-block application and
-  one tail layer), 2 requests x 128 tokens; for mixtral also the
+  one tail layer), 2 requests x 128 tokens, and seamless-m4t-large-v2
+  cut to 2 encoder and 2 decoder layers, 2 requests x 256 tokens and
+  256 frames; for mixtral also the
   smallest gap between a token's 2nd and 3rd router probability on the
   card, and how many expert choices the CPU made otherwise.
 
@@ -176,6 +190,10 @@ SERVE_HYBRID = dict(SERVE, arch="zamba2-1.2b")
 # parameters, 5.81 GB in float32, so the whole model (186 GB) does not fit
 # one 80 GB card; 8 layers with the embedding and head are 47.5 GB
 SERVE_MOE = dict(SERVE, arch="mixtral-8x7b", layers=8)
+# seamless-m4t-large-v2 at full width and depth (24 encoder and 24 decoder
+# layers, 2.04B parameters, 8.2 GB in float32): each request carries as
+# many frames as prompt tokens, 1024, the reference's enc_len = seq_len
+SERVE_AUDIO = dict(SERVE, arch="seamless-m4t-large-v2")
 SERVE_VS_CPU = dict(arch="xlstm-125m", requests=2, prompt_len=256,
                     shared_prefix_len=64, gen_len=8, seed=0)
 SERVE_DENSE_VS_CPU = dict(arch="stablelm-3b", layers=2, requests=2,
@@ -187,6 +205,13 @@ SERVE_HYBRID_VS_CPU = dict(SERVE_DENSE_VS_CPU, arch="zamba2-1.2b", layers=7)
 # mixtral-8x7b cut to 2 layers, where capacity drops pairs: C 40 a
 # sequence in prefill, C 1 for the batch of 2 in decode
 SERVE_MOE_VS_CPU = dict(SERVE_DENSE_VS_CPU, arch="mixtral-8x7b")
+# seamless-m4t-large-v2 cut to 2 encoder and 2 decoder layers: 2 requests
+# of 256 prompt tokens and 256 frames
+SERVE_AUDIO_VS_CPU = dict(SERVE_DENSE_VS_CPU, arch="seamless-m4t-large-v2",
+                          enc_layers=2, prompt_len=256, shared_prefix_len=64)
+# the keys of a serve spec that cut the model's depth rather than go to
+# serve
+DEPTH = ("layers", "enc_layers")
 # the MoE layer's einsum dispatch against its sort dispatch on the card:
 # max |einsum - sort| <= tol * max(1, max |einsum|); the same routing and
 # expert products, the combine's sums in another order
@@ -924,6 +949,98 @@ def flash_kernel_phase(card: dict, dev) -> dict:
                    "decode": out[128, decode]})
 
 
+# the audio path's attention calls for 8 requests of seamless-m4t-large-v2
+# (16 heads of 64, K = H): (case, Sq, Skv, causal, device kv_len or None,
+# the stack and phase that make the call on the serve path, or None).
+# The last two are checked and not timed: a partial query tile (1000 is
+# not a multiple of 128) with a partial KV tile (1030 of 64) and
+# Sq != Skv, and a cross decode over 1003 frames
+AUDIO_FLASH = (("encoder self", 1024, 1024, False, None, "encoder prefill"),
+               ("decoder self", 1024, 1024, True, None, "decoder prefill"),
+               ("cross prefill", 1024, 1024, False, None, "decoder prefill"),
+               ("decoder self decode", 1, 1056, False, 1025,
+                "decoder decode"),
+               ("cross decode", 1, 1024, False, None, "decoder decode"),
+               ("cross prefill, partial tiles", 1000, 1030, False, None,
+                None),
+               ("cross decode, 1003 frames", 1, 1003, False, None, None))
+
+
+def flash_audio_phase(card: dict, dev) -> dict:
+    """The flash kernel at the audio serve path's shapes (``AUDIO_FLASH``),
+    each against the plain chunked version and the naive oracle within
+    ``FLASH_TOL``; the timed ones beside the plain version, the bound and
+    torch's scaled_dot_product_attention (float32, the same masks).
+    Returns case -> the kernel JSON's keys; each case's ``launches``
+    stays None until the serve path's run counts them
+    (``LaunchesInside``)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_chunked_ref, flash_attention_ref, flash_fwd)
+    B, H, hd = 8, 16, 64
+    gen = torch.Generator(dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def fold(t):                  # (B, S, H, hd) -> (B * H, S, hd)
+        return t.transpose(1, 2).reshape(-1, t.shape[1], hd)
+
+    out = {}
+    for case, Sq, Skv, causal, n, where in AUDIO_FLASH:
+        q, k, v = randn(B, Sq, H, hd), randn(B, Skv, H, hd), randn(
+            B, Skv, H, hd)
+        n_dev = (None if n is None
+                 else torch.tensor(n, dtype=torch.int32, device=dev))
+        kv_len = Skv if n is None else n
+
+        def run():
+            return flash_fwd(q, k, v, causal=causal, kv_len=n_dev)
+
+        got = fold(run())
+        check(bool(torch.isfinite(got).all()),
+              f"flash audio {case}: not finite")
+        folded = [fold(q), fold(k), fold(v)]
+        kw = dict(causal=causal, seq_k=0 if n_dev is None else n_dev)
+        errs = {}
+        for what, plain_fn in (("plain", flash_attention_chunked_ref),
+                               ("naive", flash_attention_ref)):
+            want = plain_fn(*folded, **kw)
+            err = float((got - want).abs().max())
+            bound = FLASH_TOL * max(1.0, float(want.abs().max()))
+            check(err <= bound, f"flash audio {case}: max_abs_err vs {what} "
+                  f"{err} > {bound}")
+            errs[what] = err
+        del want, got
+        shape = (f"(B {B}, Sq {Sq}, Skv {Skv}, H {H}, K {H}, hd {hd}, "
+                 f"{'causal' if causal else 'no mask'}"
+                 + ("" if n is None else f", device kv_len {n}") + ")")
+        head = (f"flash_fwd audio {case} {shape}: max_abs_err vs plain "
+                f"{errs['plain']:.3e}, vs naive {errs['naive']:.3e} (tol "
+                f"{FLASH_TOL} x max(1, |plain|))")
+        if where is None:
+            log(f"{head}; checked, not timed")
+            continue
+        nbytes, ops = flash_work(B, Sq, H, H, hd, kv_len, causal)
+        b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
+        ms = time_ms(run)
+        plain_ms = time_ms(lambda: flash_attention_chunked_ref(*folded, **kw),
+                           reps=1, windows=3)
+        lib_ms, how = sdpa_ms(q, k, v, kv_len, causal)
+        log(f"{head}; {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
+            f"{ops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s "
+            f"achieved), 3xTF32 on the tensor cores "
+            f"{3 * ops / card['tf32'] * 1e3:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"library {lib_ms:.4f} ms (scaled_dot_product_attention, "
+            f"float32, {how}); kernel / library {ms / lib_ms:.3f}; "
+            f"serve_seamless's {where} call")
+        out[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=errs["plain"],
+                         library_ms=lib_ms, launches=None)
+    return out
+
+
 def plain_attention(q, k, v, *, causal: bool, window: int):
     """Softmax attention of q (B, S, H, hd) over k, v (B, S, K, hd) in the
     inputs' dtype, K/V repeated to the query heads, the hidden keys
@@ -1506,15 +1623,57 @@ def device_busy(fn) -> tuple:
 
 def spec_model(dev, spec: dict):
     """The model of a serve spec: its config, cut to ``spec["layers"]``
-    layers where given (every width kept), random weights drawn on the
-    card from the spec's seed."""
+    (decoder) and ``spec["enc_layers"]`` (encoder) layers where given
+    (every width kept), random weights drawn on the card from the spec's
+    seed."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     cfg = get_config(spec["arch"])
     if "layers" in spec:
         cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    if "enc_layers" in spec:
+        cfg = dataclasses.replace(cfg, encoder_layers=spec["enc_layers"])
     return init_params(cfg, spec["seed"], device=dev)
+
+
+class LaunchesInside:
+    """Counts a kernel wrapper's launches made inside the calls of each
+    group of modules (``groups``: name -> modules), by phase: a call
+    whose input holds one position is a decode step's, any other a
+    prefill's.  ``counts``: (group, phase) -> launches; the hooks are
+    removed on leaving the ``with``."""
+
+    def __init__(self, wrapper, groups: dict):
+        self.wrapper, self.groups = wrapper, groups
+        self.counts, self.started, self.hooks = {}, {}, []
+
+    def __enter__(self):
+        def pre(mod, args):
+            self.started[mod] = self.wrapper.launches
+
+        def post(group):
+            def hook(mod, args, out):
+                key = (group, "decode" if args[0].shape[1] == 1
+                       else "prefill")
+                self.counts[key] = (self.counts.get(key, 0)
+                                    + self.wrapper.launches
+                                    - self.started.pop(mod))
+            return hook
+
+        for group, mods in self.groups.items():
+            for mod in mods:
+                self.hooks += [mod.register_forward_pre_hook(pre),
+                               mod.register_forward_hook(post(group))]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+
+def serve_kwargs(spec: dict) -> dict:
+    return {k: v for k, v in spec.items() if k not in DEPTH}
 
 
 def serve_breakdown(dev, spec: dict, groups: dict, kernels: tuple,
@@ -1526,18 +1685,24 @@ def serve_breakdown(dev, spec: dict, groups: dict, kernels: tuple,
     rest (embedding, final norm, LM head), the launches of each of
     ``kernels`` per call, the unhooked decode step's wall, and the
     device's busy share and kernel time by kind from torch.profiler.
-    ``params``: the model (default ``spec_model``); random prompt tokens,
-    as serve."""
+    ``params``: the model (default ``spec_model``); random prompt tokens
+    and, for the audio family, random frames, as serve."""
+    import functools
     import torch
+    from repro_torch.configs import AUDIO
     from repro_torch.launch.serve import KERNELS
-    from repro_torch.models import decode_step, prefill
+    from repro_torch.models import decode_step
+    from repro_torch.models import prefill as prefill_fn
     if params is None:
         params = spec_model(dev, spec)
     cfg = params.cfg
     B, S = spec["requests"], spec["prompt_len"]
-    toks = torch.randint(1, cfg.vocab_size, (B, S),
-                         generator=torch.Generator().manual_seed(0)).to(dev)
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(1, cfg.vocab_size, (B, S), generator=gen).to(dev)
     max_len = S + spec["gen_len"]
+    frames = (torch.randn((B, S, cfg.d_model), generator=gen).to(dev)
+              if cfg.family == AUDIO else None)
+    prefill = functools.partial(prefill_fn, enc_frames=frames)
     logits, cache = prefill(params, cfg, toks, max_len=max_len)  # warm-up
     tok = logits[:, -1].argmax(-1, keepdim=True)
     del logits
@@ -1650,7 +1815,7 @@ def serve_path(dev, spec: dict, launches: dict, params=None) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
-    kw = {k: v for k, v in spec.items() if k != "layers"}
+    kw = serve_kwargs(spec)
     torch.cuda.reset_peak_memory_stats(dev)
     res = serve(device=dev, params=params, **kw)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1679,6 +1844,11 @@ def serve_path(dev, spec: dict, launches: dict, params=None) -> dict:
           f"{name}: page pool {res['pool']}")
     depth = (f" ({params.cfg.n_layers} of {cfg.n_layers} layers, d_model "
              f"{cfg.d_model})" if params is not None else "")
+    if cfg.encoder_layers:
+        served = cfg if params is None else params.cfg
+        depth = (f" ({served.encoder_layers} encoder and {served.n_layers} "
+                 f"decoder layers, d_model {cfg.d_model}, "
+                 f"{spec['prompt_len']} frames a request)")
     log(f"{name}{depth}: {B} requests x {spec['prompt_len']} prompt tokens "
         f"(shared prefix {spec['shared_prefix_len']}) + {G} generated; "
         f"prefill {res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s "
@@ -1797,7 +1967,7 @@ def serve_vs_cpu(dev, spec: dict) -> None:
     import numpy as np
     import torch
     from repro_torch.launch.serve import serve
-    kw = {k: v for k, v in spec.items() if k != "layers"}
+    kw = serve_kwargs(spec)
     model = spec_model(dev, spec)
     cfg = model.cfg
     watch = router_watch(model)
@@ -1818,8 +1988,11 @@ def serve_vs_cpu(dev, spec: dict) -> None:
                 **kw)
     err = float(np.max(np.abs(gpu["logits"] - cpu["logits"])))
     bound = LOGIT_TOL * max(1.0, float(np.max(np.abs(cpu["logits"]))))
-    what = (f"{cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}) "
-            f"vs CPU")
+    enc = (f"{cfg.encoder_layers} encoder and " if cfg.encoder_layers
+           else "")
+    dec = " decoder" if cfg.encoder_layers else ""
+    what = (f"{cfg.name} ({enc}{cfg.n_layers}{dec} layers, d_model "
+            f"{cfg.d_model}) vs CPU")
     routing = ""
     if card_ids:
         check(len(card_ids) == len(cpu_watch["ids"]),
@@ -1989,6 +2162,7 @@ def main() -> int:
     kernels = kernel_phase(card, dev)
     kernels["ssd_chunked"] = ssd_kernel_phase(card, dev)
     kernels["flash_fwd"] = flash_kernel_phase(card, dev)
+    kernels["flash_fwd"]["hd64_audio"] = flash_audio_phase(card, dev)
     kernels["flash_fwd"]["gradient"] = flash_grad_phase(card, dev)
     kernels["paged_decode"] = paged_kernel_phase(card, dev)
     wrappers = {"maxplus_chunked": mp_kernel.maxplus_chunked,
@@ -2208,6 +2382,86 @@ def main() -> int:
     del bd
     torch.cuda.empty_cache()
 
+    # --------------------- the audio family, full width and full depth
+    acfg = get_config(SERVE_AUDIO["arch"])
+    La, Le, Ga = acfg.n_layers, acfg.encoder_layers, SERVE_AUDIO["gen_len"]
+    # prefill: one self-attention call an encoder layer, one self- and one
+    # cross-attention call a decoder layer; decode: the decoder's two
+    a_pre, a_step = Le + 2 * La, 2 * La
+    # the serve's model (the one serve draws from the seed), hooked to
+    # count the flash launches inside each stack and each cross-attention
+    model = spec_model(dev, SERVE_AUDIO)
+    with LaunchesInside(flash_fwd, {
+            "encoder": model.enc_layers, "decoder": model.layers,
+            "cross": [lay.xattn for lay in model.layers]}) as inside:
+        drive("serve_seamless", ("flash_fwd",), lambda: serve_path(
+            dev, SERVE_AUDIO, {"ssd_chunked": (0, 0),
+                               "flash_fwd": (a_pre, a_step)},
+            params=model))
+    n_in = inside.counts
+    k4a = kernels["flash_fwd"]["hd64_audio"]
+    for case, group, phase in (("encoder self", "encoder", "prefill"),
+                               ("decoder self", "decoder", "prefill"),
+                               ("cross prefill", "cross", "prefill"),
+                               ("decoder self decode", "decoder", "decode"),
+                               ("cross decode", "cross", "decode")):
+        n = n_in.get((group, phase), 0)
+        if group == "decoder":      # the decoder layer's calls less its
+            n -= n_in.get(("cross", phase), 0)      # cross-attention's
+        k4a[case]["launches"] = n
+    want = {"encoder self": Le, "decoder self": La, "cross prefill": La,
+            "decoder self decode": La * (Ga - 1),
+            "cross decode": La * (Ga - 1)}
+    got = {case: k4a[case]["launches"] for case in want}
+    n_a = by_path["flash_fwd"]["serve_seamless"]
+    check(got == want and n_a == sum(got.values())
+          and by_path["ssd_chunked"]["serve_seamless"] == 0,
+          f"serve_seamless: flash launches by call {got}, expected {want}; "
+          f"{n_a} in all")
+    log(f"serve_seamless: flash launches counted inside the modules: "
+        + ", ".join(f"{c} {n}" for c, n in got.items())
+        + f" (expected {Le}, {La}, {La}, {La} x {Ga - 1}, {La} x "
+        f"{Ga - 1}), {n_a} in all, none outside them")
+    torch.cuda.empty_cache()
+    bd = serve_breakdown(dev, SERVE_AUDIO,
+                         {"encoder layers": lambda m: m.enc_layers,
+                          "decoder layers": lambda m: m.layers,
+                          "cross-attention": lambda m: [
+                              lay.xattn for lay in m.layers]},
+                         both, params=model)
+    check(bd["prefill_launches"] == {"ssd_chunked": 0, "flash_fwd": a_pre}
+          and bd["decode_launches"] == {"ssd_chunked": 0,
+                                        "flash_fwd": a_step},
+          f"serve_seamless breakdown: launches {bd['prefill_launches']} a "
+          f"prefill, {bd['decode_launches']} a decode step")
+    log_breakdown("serve_seamless", bd, inner=("cross-attention",))
+    for what, total, groups in (
+            ("warm prefill", bd["prefill_s"], bd["groups"]),
+            ("decode step under the hooks", bd["decode_hooked_s"],
+             bd["decode_groups"])):
+        enc_s, x_s = groups["encoder layers"], groups["cross-attention"]
+        dec_s = groups["decoder layers"] - x_s
+        rest = total - enc_s - groups["decoder layers"]
+        log(f"serve_seamless {what} {total:.4f} s: encoder layers "
+            f"{enc_s:.4f} s ({enc_s / total:.1%}), decoder self-attention "
+            f"and MLP {dec_s:.4f} s ({dec_s / total:.1%}), cross-attention "
+            f"(lnx excluded) {x_s:.4f} s ({x_s / total:.1%}), embedding, "
+            f"final norm and LM head {rest:.4f} s ({rest / total:.1%})")
+    pre_ms = Le * k4a["encoder self"]["ms"] + La * (
+        k4a["decoder self"]["ms"] + k4a["cross prefill"]["ms"])
+    step_ms = La * (k4a["decoder self decode"]["ms"]
+                    + k4a["cross decode"]["ms"])
+    log(f"serve_seamless: from the kernel phase, attention is {Le} x "
+        f"{k4a['encoder self']['ms']:.4f} + {La} x "
+        f"({k4a['decoder self']['ms']:.4f} + "
+        f"{k4a['cross prefill']['ms']:.4f}) ms = {pre_ms:.3f} ms of the "
+        f"warm prefill ({pre_ms / 1e3 / bd['prefill_s']:.1%}) and {La} x "
+        f"({k4a['decoder self decode']['ms']:.4f} + "
+        f"{k4a['cross decode']['ms']:.4f}) ms = {step_ms:.3f} ms of a "
+        f"decode step ({step_ms / 1e3 / bd['decode_step_s']:.1%})")
+    del bd, model
+    torch.cuda.empty_cache()
+
     # ----------------------- the MoE family, full width, 8 of 32 layers
     # every earlier path's model is freed: 47.5 GB of weights must fit
     log(f"before serve_mixtral: "
@@ -2263,6 +2517,7 @@ def main() -> int:
     serve_vs_cpu(dev, SERVE_DENSE_VS_CPU)
     serve_vs_cpu(dev, SERVE_HYBRID_VS_CPU)
     serve_vs_cpu(dev, SERVE_MOE_VS_CPU)
+    serve_vs_cpu(dev, SERVE_AUDIO_VS_CPU)
     torch.cuda.empty_cache()
 
     # ------------------------------------- training, full width and depth

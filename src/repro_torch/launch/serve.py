@@ -6,6 +6,8 @@ pool, on the GPU unless told otherwise.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --prompt-len 1024
 
 Flow per batch, as in ``repro/launch/serve.py``: shared system prefixes
 register as *global* pages (content-hashed, deduplicated, ring-placed);
@@ -15,8 +17,12 @@ page-pool stats show the EdgeKV dedup win.  The dense family (the
 default, stablelm-3b; attention in the ``flash_fwd`` kernel), the MoE
 family (mixtral-8x7b, arctic-480b; attention in ``flash_fwd``, the
 experts' einsum dispatch in plain torch products, as the reference's),
-the hybrid (zamba2-1.2b; Mamba2's prefill scans in the ``ssd_chunked``
-kernel, the shared attention block in ``flash_fwd``) and the SSM family
+the audio family (seamless-m4t-large-v2: the encoder's self-attention,
+the decoder's self-attention and its cross-attention over the encoder's
+output all in ``flash_fwd``; the encoder's input, frame embeddings,
+comes from the seed, as the frontend is a stub), the hybrid
+(zamba2-1.2b; Mamba2's prefill scans in the ``ssd_chunked`` kernel, the
+shared attention block in ``flash_fwd``) and the SSM family
 (xlstm-125m; scans in ``ssd_chunked``) are ported.  mixtral-8x7b at its
 32 layers is 186 GB of float32 weights and does not fit one 80 GB card:
 serve a depth-cut copy (``dataclasses.replace(cfg, n_layers=8)``) with
@@ -28,12 +34,12 @@ prints what the reference prints.
 from __future__ import annotations
 
 import argparse
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced as reduced_config
+from repro_torch.configs import AUDIO, get_config, reduced as reduced_config
 from repro_torch.core.hashring import ChordRing
 from repro_torch.device import resolve_device
 from repro_torch.edgecache import PagePoolManager
@@ -55,10 +61,12 @@ def _sync(dev: torch.device) -> None:
 
 def page_requests(vocab_size: int, *, requests: int, prompt_len: int,
                   gen_len: int, shared_prefix_len: int, page_size: int,
-                  seed: int) -> Tuple[np.ndarray, PagePoolManager]:
+                  seed: Union[int, np.random.Generator]
+                  ) -> Tuple[np.ndarray, PagePoolManager]:
     """The batch :func:`serve` runs: ``requests`` prompts (requests,
-    prompt_len) int32 from ``seed``, the first ``shared_prefix_len``
-    tokens shared, and the EdgeKV page pool (4096 slots of ``page_size``
+    prompt_len) int32 from ``seed`` (an int, or a numpy Generator that
+    the draws advance), the first ``shared_prefix_len`` tokens shared,
+    and the EdgeKV page pool (4096 slots of ``page_size``
     tokens, we are group g0 of 4 on the ring) with each request's pages
     registered: the shared prefix as deduplicated global pages, the rest
     of the prompt and the generated tokens as local pages, in token
@@ -92,6 +100,11 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
           params: Optional[LanguageModel] = None) -> Dict[str, Any]:
     """Serve ``requests`` prompts of ``prompt_len`` tokens (the first
     ``shared_prefix_len`` shared) for ``gen_len`` greedy tokens each.
+    The audio family's requests also carry ``prompt_len`` frames each,
+    as the reference sizes its cache (``enc_len = seq_len``): frame
+    embeddings (requests, prompt_len, d_model) float32, drawn by
+    ``standard_normal`` from the seed's generator after the prompts, as
+    the reference's data pipeline draws them.
 
     Weights (drawn on the device) and prompts come from ``seed``; with
     ``params``, that model (on the device) is served instead, and its
@@ -124,10 +137,16 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
         raise ValueError(f"serve: params lie on {params.embed.device}, "
                          f"not on {dev}")
     cfg = params.cfg
+    rng = np.random.default_rng(seed)
     prompts, pool = page_requests(
         cfg.vocab_size, requests=requests, prompt_len=prompt_len,
         gen_len=gen_len, shared_prefix_len=shared_prefix_len,
-        page_size=page_size, seed=seed)
+        page_size=page_size, seed=rng)
+    frames = None
+    if cfg.family == AUDIO:
+        frames = torch.from_numpy(rng.standard_normal(
+            (requests, prompt_len, cfg.d_model)).astype(
+                np.float32)).to(dev)
     B = requests
 
     forced = (None if teacher_tokens is None
@@ -139,7 +158,7 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
     t0 = walltime()
     logits, cache = prefill(params, cfg,
                             torch.as_tensor(prompts, device=dev).long(),
-                            max_len=prompt_len + gen_len)
+                            max_len=prompt_len + gen_len, enc_frames=frames)
     counts.append({n: w.launches for n, w in KERNELS.items()})
     step_logits = [logits[:, -1, :V].clone()]
     del logits

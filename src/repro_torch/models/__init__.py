@@ -1,9 +1,10 @@
-"""The LLM side stack's models in PyTorch (the dense, MoE, hybrid and SSM
-families so far; training for the dense and MoE families)."""
-from .model import (LanguageModel, ModelDims, dims_from_params, forward_train,
-                    init_params, padded_vocab, param_count_tree)
+"""The LLM side stack's models in PyTorch (the dense, MoE, audio, hybrid
+and SSM families so far; training for the dense and MoE families)."""
+from .model import (LanguageModel, ModelDims, dims_from_params, encode,
+                    forward_train, init_params, padded_vocab,
+                    param_count_tree)
 from .serving import decode_step, init_cache, prefill
 
 __all__ = ["LanguageModel", "ModelDims", "decode_step", "dims_from_params",
-           "forward_train", "init_cache", "init_params", "padded_vocab",
-           "param_count_tree", "prefill"]
+           "encode", "forward_train", "init_cache", "init_params",
+           "padded_vocab", "param_count_tree", "prefill"]

@@ -1,15 +1,18 @@
 """Grouped-query attention, the counterpart of
-``repro/models/attention.py`` for the dense family.
+``repro/models/attention.py``.
 
 Every attention call goes through ``kernels/flash_attention``: the
 hand-written ``flash_fwd`` CUDA kernel on the GPU, its plain chunked
-online-softmax version on the CPU.  Prefill is causal self-attention
-(:func:`attn_apply`); decode attends one new token over the cache's
+online-softmax version on the CPU.  Prefill is self-attention, causal
+in a decoder and not in the audio family's encoder, or cross-attention
+over an encoder's output (:func:`attn_apply` with ``kv_x``: no RoPE on
+either side, no mask); decode attends one new token over the cache's
 valid prefix (:func:`decode_attention`: ``causal=False`` and the true
-length ``kv_len``, the TPU kernel's ``seq_k``).
+length ``kv_len``, the TPU kernel's ``seq_k``), and in the audio family
+over the encoder's K/V as well (:func:`cross_attention`).
 
 Not ported: the int8 KV cache (``kv_scales``, ROADMAP section 1 item 4),
-which the serve path does not use; cross-attention (the audio family).
+which the serve path does not use.
 """
 from __future__ import annotations
 
@@ -23,8 +26,8 @@ from .layers import apply_rope, dense_init
 
 Params = Dict[str, torch.Tensor]
 
-__all__ = ["NEG_INF", "attn_apply", "attn_init", "decode_attention",
-           "gqa_attention"]
+__all__ = ["NEG_INF", "attn_apply", "attn_init", "cross_attention",
+           "decode_attention", "gqa_attention"]
 
 
 def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
@@ -49,23 +52,44 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attn_apply(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
                hd: int, rope_theta: float, causal: bool = True,
-               window: int = 0, positions: Optional[torch.Tensor] = None
+               window: int = 0, positions: Optional[torch.Tensor] = None,
+               kv_x: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Self-attention sub-layer: projections, RoPE on q and k, flash
-    attention, output projection.  Returns (out (B, S, D), k, v), with k
-    (after RoPE) and v (B, S, K, hd) as the decode cache stores them: the
-    reference's prefill projects them a second time for the cache, the
-    port keeps these (the same numbers)."""
+    """Attention sub-layer: projections, RoPE on q and k, flash
+    attention, output projection.  With ``kv_x`` (B, Skv, D), the
+    cross-attention of the audio family's decoder: K and V are projected
+    from it, neither side takes RoPE and no query is masked
+    (``causal`` is ignored).  Returns (out (B, S, D), k, v), with k
+    (after RoPE, if any) and v (B, Skv, K, hd) as the decode cache
+    stores them: the reference's prefill projects them a second time for
+    the cache, the port keeps these (the same numbers)."""
+    B, S, _ = x.shape
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
+    q = (x @ p["wq"]).reshape(B, S, n_heads, hd)
+    k = (src @ p["wk"]).reshape(B, Skv, n_kv, hd)
+    v = (src @ p["wv"]).reshape(B, Skv, n_kv, hd)
+    if kv_x is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, torch.arange(Skv, device=x.device)[None, :],
+                       rope_theta)
+    out = gqa_attention(q, k, v, causal=causal and kv_x is None,
+                        window=window)
+    return out.reshape(B, S, n_heads * hd) @ p["wo"], k, v
+
+
+def cross_attention(p: Params, x: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, *, n_heads: int, hd: int
+                    ) -> torch.Tensor:
+    """A decode step's cross-attention: x (B, Sq, D) attends over the
+    encoder's K/V (B, S_enc, K, hd) that prefill stored, every frame
+    valid; the query takes no RoPE.  Returns (B, Sq, D)."""
     B, S, _ = x.shape
     q = (x @ p["wq"]).reshape(B, S, n_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, n_kv, hd)
-    v = (x @ p["wv"]).reshape(B, S, n_kv, hd)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, torch.arange(S, device=x.device)[None, :], rope_theta)
-    out = gqa_attention(q, k, v, causal=causal, window=window)
-    return out.reshape(B, S, n_heads * hd) @ p["wo"], k, v
+    out = gqa_attention(q, k, v, causal=False)
+    return out.reshape(B, S, n_heads * hd) @ p["wo"]
 
 
 def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,

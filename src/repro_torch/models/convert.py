@@ -2,10 +2,11 @@
 :class:`~.model.LanguageModel`, and back.
 
 The reference keeps a layer stack that it scans over as one tree with a
-leading layer axis (``layers``, ``mlstm_layers``) and individually placed
-layers as a list (``slstm_layers``); the port keeps one module per
-layer.  So ``tree["layers"]["attn"]["wq"][i]`` is ``layers.<i>.attn.wq``
-and ``tree["slstm_layers"][i]["slstm"]["w_i"]`` is
+leading layer axis (``layers``, the audio family's ``enc_layers``,
+``mlstm_layers``) and individually placed layers as a list
+(``slstm_layers``); the port keeps one module per layer.  So
+``tree["layers"]["attn"]["wq"][i]`` is ``layers.<i>.attn.wq`` and
+``tree["slstm_layers"][i]["slstm"]["w_i"]`` is
 ``slstm_layers.<i>.slstm.w_i``; a single layer, the hybrid's shared
 block, is one tree and one module (``tree["shared_attn"]["attn"]["wq"]``
 is ``shared_attn.attn.wq``).  :func:`reference_leaf` names the
@@ -20,7 +21,8 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-STACKED = ("layers", "mlstm_layers")   # one tree, leading layer axis
+# one tree, leading layer axis
+STACKED = ("layers", "enc_layers", "mlstm_layers")
 LISTED = ("slstm_layers",)    # a list of per-layer trees
 
 
@@ -37,7 +39,8 @@ def reference_leaf(name: str) -> Tuple[str, Optional[int]]:
     tree path, dict keys and list indices joined with "/") and, for a
     stacked layer, the layer's index along that leaf's leading axis:
     ``layers.3.attn.wq`` -> ("layers/attn/wq", 3), ``slstm_layers.1.ln``
-    -> ("slstm_layers/1/ln", None), ``embed`` -> ("embed", None)."""
+    -> ("slstm_layers/1/ln", None), ``layers.2.xattn.wk`` ->
+    ("layers/xattn/wk", 2), ``embed`` -> ("embed", None)."""
     parts = name.split(".")
     if parts[0] in STACKED:
         return "/".join([parts[0], *parts[2:]]), int(parts[1])

@@ -4,14 +4,17 @@
 whose ``state_dict`` keys follow the reference's parameter tree
 (``embed``, ``final_norm``, ``lm_head``, ``layers.<i>.attn.wq``,
 ``mlstm_layers.<i>.mlstm.wq``, ...; :mod:`.convert` maps one onto the
-other).  Four families are ported: the dense decoder (a stack of
+other).  Five families are ported: the dense decoder (a stack of
 :class:`DenseBlock`, stablelm-3b), the MoE family (the same stack with
 a :class:`~.moe.MoELayer` in place of each MLP, mixtral-8x7b and
-arctic-480b), the hybrid (zamba2-1.2b: a stack of
-:class:`~.ssm.Mamba2Block` and one shared-weight :class:`DenseBlock`
-applied after every ``shared_attn_every`` of them) and the SSM family
-(xLSTM: a stack of mLSTM layers with sLSTM layers at their configured
-indices); every other family raises ``NotImplementedError``.
+arctic-480b), the audio family (seamless-m4t-large-v2: an encoder stack
+of non-causal :class:`DenseBlock` over frame embeddings, :func:`encode`,
+and a decoder stack of :class:`DenseBlock` with cross-attention), the
+hybrid (zamba2-1.2b: a stack of :class:`~.ssm.Mamba2Block` and one
+shared-weight :class:`DenseBlock` applied after every
+``shared_attn_every`` of them) and the SSM family (xLSTM: a stack of
+mLSTM layers with sLSTM layers at their configured indices); the VLM
+family raises ``NotImplementedError``.
 
 :func:`forward_train` is the training loss of the dense and MoE
 families, differentiable through autograd (attention's gradient is
@@ -29,7 +32,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, HYBRID, MOE,
                                       SSM, VLM)
-from .attention import attn_apply, attn_init, decode_attention
+from .attention import (attn_apply, attn_init, cross_attention,
+                        decode_attention)
 from .layers import (apply_norm, cross_entropy_loss, dense_init, mlp_apply,
                      mlp_init)
 from .moe import MoELayer
@@ -44,19 +48,19 @@ class ModelDims:
 
 
 # the ROADMAP.md item (section 1 item 4) each unported family waits for
-NOT_PORTED = {VLM: "the audio and VLM families",
-              AUDIO: "the audio and VLM families"}
+NOT_PORTED = {VLM: "the VLM family"}
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in (DENSE, MOE, HYBRID, SSM):
+    if cfg.family not in (DENSE, MOE, AUDIO, HYBRID, SSM):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
             f"PyTorch yet (ROADMAP.md, section 1 item 4: "
             f"{NOT_PORTED.get(cfg.family, 'not planned')}); only the "
             f"{DENSE!r} (stablelm-3b), {MOE!r} (mixtral-8x7b, "
-            f"arctic-480b), {HYBRID!r} (zamba2-1.2b) and {SSM!r} "
-            f"(xlstm-125m) families are")
+            f"arctic-480b), {AUDIO!r} (seamless-m4t-large-v2), "
+            f"{HYBRID!r} (zamba2-1.2b) and {SSM!r} (xlstm-125m) families "
+            f"are")
 
 
 def model_dims(cfg: ArchConfig) -> ModelDims:
@@ -71,14 +75,41 @@ def padded_vocab(cfg: ArchConfig) -> int:
     return -(-cfg.vocab_size // 256) * 256
 
 
+class CrossAttention(nn.Module):
+    """The audio decoder's cross-attention sub-layer, a module of its
+    own so that hooks see it; its weights are ``wq``, ``wk``, ``wv`` and
+    ``wo``, as the reference's ``xattn``.  Prefill projects K/V from the
+    encoder's output, decode reads the ones prefill stored."""
+
+    def __init__(self, weights: Dict[str, torch.Tensor]):
+        super().__init__()
+        for name, t in weights.items():
+            self.register_parameter(name, nn.Parameter(t))
+
+    def forward(self, x: torch.Tensor, dims: ModelDims, *,
+                enc_out: Optional[torch.Tensor] = None,
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """x (B, S, D), normed.  Returns (out, k, v), k and v (B, S_enc,
+        K, hd)."""
+        p = dict(self.named_parameters())
+        if kv is None:   # no RoPE on either side: rope_theta is unread
+            return attn_apply(p, x, n_heads=dims.H, n_kv=dims.K,
+                              hd=dims.hd, rope_theta=0.0, kv_x=enc_out)
+        return cross_attention(p, x, *kv, n_heads=dims.H, hd=dims.hd), *kv
+
+
 class DenseBlock(nn.Module):
-    """One pre-norm decoder layer of the dense family: ``x + attn(ln1
-    x)``, then ``x + MLP(ln2 x)``; in the MoE family ``x + MoE(ln2 x)``.
-    The parameters keep the reference's names (``ln1``, ``attn``,
-    ``ln2``, and ``mlp`` or ``moe``)."""
+    """One pre-norm layer of the dense family: ``x + attn(ln1 x)``, then
+    ``x + MLP(ln2 x)``; in the MoE family ``x + MoE(ln2 x)``.  With
+    ``cross`` (the audio decoder) ``x + xattn(lnx x)`` over the
+    encoder's output comes between the two.  The parameters keep the
+    reference's names (``ln1``, ``attn``, ``ln2``, ``lnx``, ``xattn``,
+    and ``mlp`` or ``moe``)."""
 
     def __init__(self, cfg: ArchConfig, dims: ModelDims,
-                 gen: torch.Generator, dtype: torch.dtype = torch.float32):
+                 gen: torch.Generator, dtype: torch.dtype = torch.float32,
+                 cross: bool = False):
         super().__init__()
         D = cfg.d_model
         self.cfg, self.dims = cfg, dims
@@ -86,6 +117,10 @@ class DenseBlock(nn.Module):
         self.attn = nn.ParameterDict(attn_init(gen, D, dims.H, dims.K,
                                                dims.hd, dtype))
         self.ln2 = nn.Parameter(torch.ones(D, dtype=dtype))
+        if cross:
+            self.lnx = nn.Parameter(torch.ones(D, dtype=dtype))
+            self.xattn = CrossAttention(attn_init(gen, D, dims.H, dims.K,
+                                                  dims.hd, dtype))
         if cfg.family == MOE:
             self.moe = MoELayer(gen, D, cfg.d_ff, cfg.n_experts,
                                 cfg.activation, dtype,
@@ -96,15 +131,20 @@ class DenseBlock(nn.Module):
                                                  cfg.activation, dtype))
 
     def forward(self, x: torch.Tensor, state: Optional[dict] = None, *,
+                enc_out: Optional[torch.Tensor] = None, causal: bool = True,
                 dispatch: str = "einsum",
                 capacity_factor: Optional[float] = None
                 ) -> Tuple[torch.Tensor, dict]:
         """Prefill (``state`` None): x (B, S, D) -> (x, {"k", "v"}), the
-        layer's post-RoPE K and V (B, S, K, hd).  Decode: x (B, 1, D) with
-        ``state`` {"k", "v"} (B, S_max, K, hd) caches and "len", the
-        valid entries before this token -> (x, {"k", "v"}), the same
-        cache tensors, written in place.  Both dicts also hold "aux",
-        the MoE layer's load-balancing loss (0.0 in the dense family).
+        layer's post-RoPE K and V (B, S, K, hd); ``causal`` False for the
+        audio encoder.  Decode: x (B, 1, D) with ``state`` {"k", "v"}
+        (B, S_max, K, hd) caches and "len", the valid entries before
+        this token -> (x, {"k", "v"}), the same cache tensors, written in
+        place.  Both dicts also hold "aux", the MoE layer's
+        load-balancing loss (0.0 in the dense family).  A layer with
+        cross-attention takes ``enc_out`` (B, S_enc, D) in prefill and
+        returns its K/V as "xk", "xv" (B, S_enc, K, hd); in decode it
+        reads them from ``state``.
 
         The MoE family routes each prefill sequence as one group, (B, S,
         D), and a decode step's whole batch as one, (1, B, D), as the
@@ -116,15 +156,23 @@ class DenseBlock(nn.Module):
         kw = dict(n_heads=dims.H, n_kv=dims.K, hd=dims.hd,
                   rope_theta=cfg.rope_theta, window=cfg.sliding_window)
         if state is None:
-            y, k, v = attn_apply(dict(self.attn), hn, causal=True, **kw)
+            y, k, v = attn_apply(dict(self.attn), hn, causal=causal, **kw)
         else:
             y, k, v = decode_attention(dict(self.attn), hn, state["k"],
                                        state["v"], state["len"], **kw)
         x = x + y
+        out = {"k": k, "v": v, "aux": 0.0}
+        if hasattr(self, "xattn"):
+            if (enc_out is None) == (state is None):
+                raise ValueError("a cross-attention layer takes enc_out in "
+                                 "prefill and the stored xk/xv in decode")
+            y, out["xk"], out["xv"] = self.xattn(
+                apply_norm(cfg.norm, x, self.lnx), dims, enc_out=enc_out,
+                kv=None if state is None else (state["xk"], state["xv"]))
+            x = x + y
         hn = apply_norm(cfg.norm, x, self.ln2)
         if cfg.family != MOE:
-            return x + mlp_apply(dict(self.mlp), hn, cfg.activation), {
-                "k": k, "v": v, "aux": 0.0}
+            return x + mlp_apply(dict(self.mlp), hn, cfg.activation), out
         groups = hn if state is None else hn.reshape(1, -1, cfg.d_model)
         y, aux = self.moe(groups, top_k=cfg.top_k,
                           activation=cfg.activation,
@@ -132,7 +180,7 @@ class DenseBlock(nn.Module):
                                            if capacity_factor is None
                                            else capacity_factor),
                           dispatch=dispatch)
-        return x + y.reshape(hn.shape), {"k": k, "v": v, "aux": aux}
+        return x + y.reshape(hn.shape), dict(out, aux=aux)
 
 
 class LanguageModel(nn.Module):
@@ -148,10 +196,14 @@ class LanguageModel(nn.Module):
         self.final_norm = nn.Parameter(torch.ones(D, dtype=dtype))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(dense_init(gen, (D, V), dtype))
-        if cfg.family in (DENSE, MOE):
+        if cfg.family in (DENSE, MOE, AUDIO):
             dims = model_dims(cfg)
+            if cfg.family == AUDIO:
+                self.enc_layers = nn.ModuleList(
+                    DenseBlock(cfg, dims, gen, dtype)
+                    for _ in range(cfg.encoder_layers))
             self.layers = nn.ModuleList(
-                DenseBlock(cfg, dims, gen, dtype)
+                DenseBlock(cfg, dims, gen, dtype, cross=cfg.family == AUDIO)
                 for _ in range(cfg.n_layers))
             return
         if cfg.family == HYBRID:
@@ -237,11 +289,21 @@ def _logits(params: LanguageModel, cfg: ArchConfig,
     return x @ head
 
 
+def encode(params: LanguageModel, cfg: ArchConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """The audio family's encoder: frame embeddings (B, S_enc, D)
+    through the non-causal layers, every frame valid; no final norm, as
+    in the reference."""
+    for layer in params.enc_layers:
+        frames, _ = layer(frames, causal=False)
+    return frames
+
+
 def dims_from_params(params: LanguageModel, cfg: ArchConfig) -> ModelDims:
     """Head counts as initialized, from the ``wq``/``wk`` widths of the
-    dense and MoE families' layers or the hybrid's shared block (head padding
-    included).  The SSM family has no attention and no head padding, so
-    they are the config's."""
+    dense, MoE and audio families' (decoder) layers or the hybrid's
+    shared block (head padding included).  The SSM family has no
+    attention and no head padding, so they are the config's."""
     require_ported(cfg)
     if cfg.family == SSM:
         return ModelDims(cfg.n_heads, cfg.n_kv_heads, cfg.hd)
@@ -277,12 +339,20 @@ def forward_train(params: LanguageModel, cfg: ArchConfig,
     does.  ``chunk``, the KV chunk of the reference's ``jnp`` attention,
     is taken and unused: the kernel and its plain version tile KV
     themselves.  The hybrid and SSM families raise: their scans have no
-    gradient yet."""
+    gradient yet; so does the audio family, whose training is not ported
+    yet."""
     if cfg.family in (HYBRID, SSM):
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family!r} family needs the SSD "
             f"scan's gradient, which is not ported yet (ROADMAP.md, "
-            f"section 1 item 5: the hybrid and SSM families' training)")
+            f"section 1 item 5: the hybrid, SSM and audio families' "
+            f"training)")
+    if cfg.family == AUDIO:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family (the encoder "
+            f"and cross-attention under autograd, frames in the batch) is "
+            f"not ported yet (ROADMAP.md, section 1 item 5: the hybrid, "
+            f"SSM and audio families' training)")
     require_ported(cfg)
     del chunk
     x = _embed(params, cfg, batch["tokens"])

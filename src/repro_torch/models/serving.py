@@ -1,12 +1,16 @@
 """Serving entry points: cache construction, prefill, single-token
 decode — the counterparts of ``repro/models/serving.py`` for the dense,
-MoE, hybrid and SSM families.
+MoE, audio, hybrid and SSM families.
 
 Cache keys and shapes are the reference's (B = batch, L = layers):
 
-  dense, MoE:
+  dense, MoE, audio:
           k, v (L, B, S, K, hd)           float32; S = max_len, or the
                                           sliding window (a ring buffer)
+  audio:  xk, xv (L, B, S_enc, K, hd)     each decoder layer's
+                                          cross-attention K/V over the
+                                          encoder's output (S_enc
+                                          frames), written by prefill
   hybrid: conv (L, B, ck-1, C)            Mamba2's last ck-1 conv inputs
                                           (ck = conv width, C = d_in +
                                           2 N)
@@ -25,10 +29,10 @@ Cache keys and shapes are the reference's (B = batch, L = layers):
 
 :func:`prefill` returns a new cache.  :func:`decode_step` returns a new
 cache dict.  The SSM family's states in it are new tensors and the
-cache it was given stays as it was; the dense, MoE and hybrid caches are
-written **in place** (one slot a step of K/V caches that are gigabytes
-at full width, and the hybrid's per-layer states beside them), so the
-returned dict shares them with the given one.  The valid length stays
+cache it was given stays as it was; the dense, MoE, audio and hybrid
+caches are written **in place** (one slot a step of K/V caches that are
+gigabytes at full width, and the hybrid's per-layer states beside
+them), so the returned dict shares them with the given one.  The valid length stays
 on the device: a decode step reads it without a host sync.  Both run
 without autograd.
 
@@ -36,6 +40,10 @@ The MoE family routes tokens as the reference does: a prefill groups
 them per sequence at the config's ``capacity_factor``, a decode step the
 whole batch as one group at ``max(capacity_factor, 2.0)``; ``dispatch``
 ("einsum", the default, or "sort") picks the layer's dispatch.
+
+The audio family's prefill takes the encoder's input, frame embeddings
+``enc_frames`` (B, S_enc, D): the encoder runs once, in prefill, and
+each decode step reads its K/V from ``xk``/``xv``.
 """
 from __future__ import annotations
 
@@ -43,9 +51,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, DENSE, HYBRID, MOE
+from repro_torch.configs.base import ArchConfig, AUDIO, DENSE, HYBRID, MOE
 from .model import (LanguageModel, _embed, _logits, _slstm_runs,
-                    dims_from_params)
+                    dims_from_params, encode)
 from .ssm import HEAD_P
 
 Cache = Dict[str, Any]
@@ -56,12 +64,14 @@ def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
 
 
 def init_cache(params: LanguageModel, cfg: ArchConfig, batch: int,
-               max_len: Optional[int] = None) -> Cache:
+               max_len: Optional[int] = None,
+               enc_len: Optional[int] = None) -> Cache:
     """An empty cache of ``batch`` sequences on the model's device.  The
     K/V of the dense family and of the hybrid's shared block hold
     ``max_len`` tokens (the window under sliding-window attention); the
-    recurrent states do not grow with the sequence, and the SSM family
-    ignores ``max_len``."""
+    audio family's cross K/V hold ``enc_len`` frames; the recurrent
+    states do not grow with the sequence, and the SSM family ignores
+    ``max_len``."""
     dims = dims_from_params(params, cfg)   # raises for unported families
     dev, dtype = params.embed.device, params.embed.dtype
     L, D = cfg.n_layers, cfg.d_model
@@ -70,12 +80,18 @@ def init_cache(params: LanguageModel, cfg: ArchConfig, batch: int,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     c = {"len": zeros(dtype=torch.int32)}
-    if cfg.family in (DENSE, MOE, HYBRID):
+    if cfg.family in (DENSE, MOE, AUDIO, HYBRID):
         if max_len is None:
             raise ValueError(f"init_cache: the {cfg.family!r} family needs "
                              f"max_len")
         S = cache_len_for(cfg, max_len)
-    if cfg.family in (DENSE, MOE):
+    if cfg.family == AUDIO:
+        if enc_len is None:
+            raise ValueError(f"init_cache: the {cfg.family!r} family needs "
+                             f"enc_len")
+        c["xk"] = zeros(L, batch, enc_len, dims.K, dims.hd, dtype=dtype)
+        c["xv"] = zeros(L, batch, enc_len, dims.K, dims.hd, dtype=dtype)
+    if cfg.family in (DENSE, MOE, AUDIO):
         c["k"] = zeros(L, batch, S, dims.K, dims.hd, dtype=dtype)
         c["v"] = zeros(L, batch, S, dims.K, dims.hd, dtype=dtype)
         return c
@@ -143,13 +159,18 @@ def _store(dst: torch.Tensor, t: torch.Tensor) -> None:
 
 
 def _dense_prefill(params: LanguageModel, x: torch.Tensor, cache: Cache,
-                   dispatch: str) -> torch.Tensor:
+                   dispatch: str, enc_out: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """The layers in order (MoE at the config's capacity factor); each
-    layer's K/V go into the cache."""
+    layer's K/V go into the cache, and with ``enc_out`` (the audio
+    family) its cross-attention K/V into ``xk``/``xv``."""
     for i, layer in enumerate(params.layers):
-        x, kv = layer(x, dispatch=dispatch)
+        x, kv = layer(x, enc_out=enc_out, dispatch=dispatch)
         _store(cache["k"][i], kv["k"])
         _store(cache["v"][i], kv["v"])
+        if enc_out is not None:
+            cache["xk"][i] = kv["xk"]
+            cache["xv"][i] = kv["xv"]
     return x
 
 
@@ -185,14 +206,15 @@ def decode_step(params: LanguageModel, cfg: ArchConfig, cache: Cache,
                 tokens: torch.Tensor, *, dispatch: str = "einsum"
                 ) -> Tuple[torch.Tensor, Cache]:
     """tokens (B, 1) int.  Returns (logits (B, V), new cache); the dense,
-    MoE and hybrid caches are updated in place."""
+    MoE, audio and hybrid caches are updated in place."""
     x = _embed(params, cfg, tokens)
     new = dict(cache)
-    if cfg.family in (DENSE, MOE):
+    if cfg.family in (DENSE, MOE, AUDIO):
         cf = max(cfg.capacity_factor, 2.0)
+        cross = ("xk", "xv") if cfg.family == AUDIO else ()
         for i, layer in enumerate(params.layers):
-            x, _ = layer(x, state={"k": cache["k"][i], "v": cache["v"][i],
-                                   "len": cache["len"]},
+            state = {k: cache[k][i] for k in ("k", "v", *cross)}
+            x, _ = layer(x, state=dict(state, len=cache["len"]),
                          dispatch=dispatch, capacity_factor=cf)
     elif cfg.family == HYBRID:
         x = _hybrid_stack(params, cfg, x, cache, decode=True)
@@ -204,18 +226,29 @@ def decode_step(params: LanguageModel, cfg: ArchConfig, cache: Cache,
 
 @torch.no_grad()
 def prefill(params: LanguageModel, cfg: ArchConfig, tokens: torch.Tensor, *,
-            max_len: Optional[int] = None, dispatch: str = "einsum"
+            max_len: Optional[int] = None, dispatch: str = "einsum",
+            enc_frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence forward that also builds the decode cache.  Returns
-    (logits (B, S, V), cache).  The dense, MoE and hybrid K/V caches hold
-    ``max_len`` tokens (default: the prompt's); the SSM family ignores
-    ``max_len``.  The scans of Mamba2 and mLSTM take chunks of
-    ``min(128, S)`` tokens, as in the reference, which must divide S."""
+    (logits (B, S, V), cache).  The dense, MoE, audio and hybrid K/V
+    caches hold ``max_len`` tokens (default: the prompt's); the SSM
+    family ignores ``max_len``.  The audio family needs ``enc_frames``
+    (B, S_enc, D), which it encodes first; no other family takes them.
+    The scans of Mamba2 and mLSTM take chunks of ``min(128, S)`` tokens,
+    as in the reference, which must divide S."""
+    if (enc_frames is None) == (cfg.family == AUDIO):
+        raise ValueError(f"prefill: the {cfg.family!r} family "
+                         + ("needs" if cfg.family == AUDIO else
+                            "takes no") + " enc_frames")
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
-    cache = init_cache(params, cfg, B, max_len or S)
-    if cfg.family in (DENSE, MOE):
-        x = _dense_prefill(params, x, cache, dispatch)
+    cache = init_cache(params, cfg, B, max_len or S,
+                       enc_len=None if enc_frames is None
+                       else enc_frames.shape[1])
+    if cfg.family in (DENSE, MOE, AUDIO):
+        x = _dense_prefill(params, x, cache, dispatch,
+                           enc_out=None if enc_frames is None
+                           else encode(params, cfg, enc_frames))
     elif cfg.family == HYBRID:
         x = _hybrid_stack(params, cfg, x, cache, decode=False)
     else:

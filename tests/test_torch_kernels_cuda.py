@@ -291,9 +291,14 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
 # at heads that are not a multiple of 8 (zero-filled to one: 36, 100, and
 # 7, which is not a multiple of 4 either and is staged by 4-byte copies),
 # one row of the serve shape (S 1024: 16 KV tiles, heaviest first), and
-# Sq 5, the fewest queries that take the tile configuration; last
+# Sq 5, the fewest queries that take the tile configuration; then
 # zamba2-1.2b's shared block (heads of 64): a row of its prefill and its
-# decode over the cache's valid prefix
+# decode over the cache's valid prefix; last seamless-m4t-large-v2's calls
+# (16 heads of 64, K = H) at 2 requests: encoder self-attention (no mask),
+# decoder self-attention (causal), cross-attention in prefill with a
+# partial query tile and a partial KV tile (Sq != Skv), the decoder's
+# decode over a 1056-slot cache with 1025 valid, and cross-attention in
+# decode over every frame (no kv_len), at 1024 frames and at 1003
 @pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,kv_len", [
     (2, 200, 200, 4, 4, 80, True, 0, None),
     (2, 64, 64, 4, 2, 64, True, 0, None),
@@ -318,6 +323,12 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
     (2, 5, 70, 4, 4, 80, False, 0, 66),
     (1, 1024, 1024, 2, 2, 64, True, 0, None),
     (4, 1, 1056, 8, 8, 64, False, 0, 1025),
+    (2, 1024, 1024, 16, 16, 64, False, 0, None),
+    (2, 1024, 1024, 16, 16, 64, True, 0, None),
+    (2, 1000, 1030, 16, 16, 64, False, 0, None),
+    (2, 1, 1056, 16, 16, 64, False, 0, 1025),
+    (2, 1, 1024, 16, 16, 64, False, 0, None),
+    (2, 1, 1003, 16, 16, 64, False, 0, None),
 ])
 def test_flash_kernel_vs_plain(cuda_device, B, Sq, Skv, H, K, hd, causal,
                                window, kv_len):
@@ -476,6 +487,21 @@ def test_moe_serve_on_gpu_matches_cpu(cuda_device):
     assert gpu["launches"] == {
         "ssd_chunked": {"prefill": 0, "decode": 0},
         "flash_fwd": {"prefill": 4, "decode": 4 * (gen - 1)}}
+
+
+def test_audio_serve_on_gpu_matches_cpu(cuda_device):
+    """reduced seamless-m4t-large-v2 (2 encoder and 4 decoder layers) on
+    48 frames a request served on the card and on the CPU: the same
+    logits, every attention call in the kernel: one an encoder layer and
+    two (self and cross) a decoder layer per prefill, two a decoder layer
+    per decode step."""
+    gen = 4
+    gpu = serve_on_both("seamless-m4t-large-v2", cuda_device, requests=3,
+                        prompt_len=48, gen_len=gen, shared_prefix_len=16,
+                        seed=1)
+    assert gpu["launches"] == {
+        "ssd_chunked": {"prefill": 0, "decode": 0},
+        "flash_fwd": {"prefill": 2 + 2 * 4, "decode": 2 * 4 * (gen - 1)}}
 
 
 @pytest.mark.parametrize("cf", [1.0, 1.25, 8.0])

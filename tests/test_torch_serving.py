@@ -131,6 +131,6 @@ def test_serve_teacher_forcing_replays_its_own_tokens():
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="section 1 item 4"):
         serve("internvl2-76b", reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="audio"):
-        LanguageModel(reduced(get_config("seamless-m4t-large-v2")),
+    with pytest.raises(NotImplementedError, match="the VLM family"):
+        LanguageModel(reduced(get_config("internvl2-76b")),
                       torch.Generator().manual_seed(0))
