@@ -132,6 +132,14 @@ kernel's numbers, the last ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the exit code is non-zero and no result line is
 printed.  Without a GPU, or outside a checkout of the repository, it
 exits non-zero at once.
+
+Kernel times are device times, from torch.profiler over 20 back-to-back
+calls (``device_ms``), and beside them the wrapper's back-to-back time
+from CUDA events (``call_ms``), which for a kernel of tens of
+microseconds is the host's rate of calls.  ``python3 chip_smoke.py
+--kernels`` stops after the kernel phases, drives no path and prints no
+result line: the quick way to hold two trees' kernels against each
+other in one call.
 """
 from __future__ import annotations
 
@@ -562,7 +570,8 @@ def kernel_phase(card: dict, dev) -> dict:
             a, s = c["a"], c["s"]
             nbytes = 3 * a.numel() * a.element_size()
             b_ms, b_by = bound_ms(card, nbytes, 2 * a.numel(), a.dtype)
-            ms = time_ms(lambda: wrapper(a, s))
+            ms, call_ms = device_ms(lambda: wrapper(a, s)), time_ms(
+                lambda: wrapper(a, s))
             plain_ms = time_ms(lambda: plain_fn(a, s), reps=1, windows=3)
             lib_ms = None
             if name == "maxplus_chunked":
@@ -571,8 +580,9 @@ def kernel_phase(card: dict, dev) -> dict:
                 def lib():
                     S = torch.cumsum(s, dim=1)
                     return S + torch.cummax(a - (S - s), dim=1).values
-                lib_ms = time_ms(lib)
-            log(f"{name} {tag} ({R}, {L}): {ms:.4f} ms, bound {b_ms:.4f} ms "
+                lib_ms = device_ms(lib)
+            log(f"{name} {tag} ({R}, {L}): {ms:.4f} ms on the device "
+                f"(back-to-back calls {call_ms:.4f} ms), bound {b_ms:.4f} ms "
                 f"({b_by}; {nbytes / ms / 1e9:.3f} TB/s achieved), plain "
                 f"{plain_ms:.3f} ms, library "
                 f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}")
@@ -582,7 +592,7 @@ def kernel_phase(card: dict, dev) -> dict:
                 a1, s1 = a[:1].contiguous(), s[:1].contiguous()
                 check(torch.equal(wrapper(a1, s1), plain_fn(a1, s1)),
                       f"{name} {tag} one row: not bitwise equal")
-                one_ms = time_ms(lambda: wrapper(a1, s1))
+                one_ms = device_ms(lambda: wrapper(a1, s1))
                 log(f"{name} {tag} one row (1, {L}): {one_ms:.4f} ms, "
                     f"{one_ms * 1e6 / L:.3f} ns a chain step; the chain of "
                     f"{L} steps is {one_ms / ms:.1%} of the (1000, {L}) "
@@ -593,7 +603,8 @@ def kernel_phase(card: dict, dev) -> dict:
                     source=f"src/repro_torch/kernels/maxplus_scan/csrc/"
                            f"{name}.cu",
                     replaces=replaces, launches=0,
-                    max_abs_err=c["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                    max_abs_err=c["max_abs_err"], ms=ms, call_ms=call_ms,
+                    plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     return kernels
 
@@ -669,6 +680,22 @@ def stage_ms(fn, stages, calls: int = 5) -> dict:
     return out
 
 
+def device_ms(fn, calls: int = 20, tries: int = 3) -> float:
+    """Device ms a call of ``fn``: the summed durations of the CUDA
+    kernels torch.profiler sees over ``calls`` back-to-back calls, over
+    ``calls``.  Unlike ``time_ms`` it leaves out the host's cost a call
+    (checks, allocation, the ctypes call), which bounds a back-to-back
+    run of a kernel of tens of microseconds.  A window in which the
+    profiler saw no kernel (it happens, rarely) is profiled again, up to
+    ``tries`` times."""
+    for _ in range(tries):
+        ms = sum(stage_ms(fn, (), calls).values())
+        if ms > 0:
+            return ms
+    raise AssertionError(f"torch.profiler saw no device time in {tries} "
+                         f"windows")
+
+
 def call_peak_mb(fn, dev) -> float:
     """Device memory one call of ``fn`` allocates above what is already
     allocated (its inputs), at its peak, in MB."""
@@ -735,7 +762,8 @@ def ssd_kernel_phase(card: dict, dev) -> dict:
         if timed:
             nbytes, ops = ssd_work(BH, S, P, N, Q, h0 is not None)
             b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
-            ms = time_ms(lambda: ssm_scan(*args, chunk=Q, h0=h0))
+            ms = device_ms(lambda: ssm_scan(*args, chunk=Q, h0=h0))
+            call_ms = time_ms(lambda: ssm_scan(*args, chunk=Q, h0=h0))
             plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=Q,
                                                        h0=h0),
                                reps=1, windows=3)
@@ -747,7 +775,8 @@ def ssd_kernel_phase(card: dict, dev) -> dict:
             # chunked form's operations; P = 1 runs the recurrence on the
             # CUDA cores
             tc_ms = 3 * ops / card["tf32"] * 1e3 if P > 1 else None
-            line += (f"; {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            line += (f"; {ms:.4f} ms on the device (back-to-back calls "
+                     f"{call_ms:.4f} ms), bound {b_ms:.4f} ms ({b_by}: "
                      f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
                      f"{ops / ms / 1e9:.2f} TFLOP/s, "
                      f"{nbytes / ms / 1e9:.3f} TB/s achieved), "
@@ -761,21 +790,22 @@ def ssd_kernel_phase(card: dict, dev) -> dict:
                      f"call {peak:.1f} MB above its inputs; by stage "
                      f"(torch.profiler, ms a call) "
                      + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
-            out[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, max_abs_err=max(errs.values()),
+            out[case] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=max(errs.values()),
                              peak_mb=peak, stages_ms=stages)
         log(line)
         del args, h0
     num, den = out["numerator"], out["denominator"]
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-            "peak_mb", "stages_ms")
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "peak_mb", "stages_ms")
     return dict(
         name="ssd_chunked", route="cuda",
         source="src/repro_torch/kernels/ssm_scan/csrc/ssd_chunked.cu",
         replaces="src/repro/kernels/ssm_scan/kernel.py:68", launches=0,
         max_abs_err=num["max_abs_err"], ms=num["ms"],
-        plain_ms=num["plain_ms"], bound_ms=num["bound_ms"],
-        bound_by=num["bound_by"], library_ms=None,
+        call_ms=num["call_ms"], plain_ms=num["plain_ms"],
+        bound_ms=num["bound_ms"], bound_by=num["bound_by"], library_ms=None,
         peak_mb=num["peak_mb"], stages_ms=num["stages_ms"],
         denominator={k: den[k] for k in keys},
         mamba2={k: out["mamba2"][k] for k in keys},
@@ -797,7 +827,8 @@ def flash_work(B: int, Sq: int, H: int, K: int, hd: int, kv_len: int,
 
 def sdpa_ms(q, k, v, kv_len: int, causal: bool) -> tuple:
     """torch's scaled_dot_product_attention on q (B, Sq, H, hd) over the
-    first ``kv_len`` of k, v (B, Skv, K, hd), timed.  Returns (ms, how):
+    first ``kv_len`` of k, v (B, Skv, K, hd), its device time
+    (``device_ms``, as the kernel's).  Returns (ms, how):
     under GQA the call with ``enable_gqa`` (the same inputs), and beside
     it the call over K/V repeated to the H query heads beforehand
     (outside the timing), which reaches torch's MHA kernels."""
@@ -806,13 +837,13 @@ def sdpa_ms(q, k, v, kv_len: int, causal: bool) -> tuple:
     qt = q.transpose(1, 2)
     kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
     if G == 1:
-        return time_ms(lambda: F.scaled_dot_product_attention(
+        return device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal)), "MHA"
     kr, vr = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
-    rep_ms = time_ms(lambda: F.scaled_dot_product_attention(
+    rep_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kr, vr, is_causal=causal))
     del kr, vr
-    ms = time_ms(lambda: F.scaled_dot_product_attention(
+    ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True))
     return ms, f"enable_gqa; over K/V repeated to {q.shape[2]} heads " \
         f"{rep_ms:.4f} ms"
@@ -896,7 +927,7 @@ def flash_kernel_phase(card: dict, dev) -> dict:
                 continue
             nbytes, ops = flash_work(B, a.shape[1], H, K, hd, kv_len, causal)
             b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
-            ms = time_ms(run)
+            ms, call_ms = device_ms(run), time_ms(run)
             plain_ms = time_ms(
                 lambda: flash_attention_chunked_ref(*folded, **kw),
                 reps=1, windows=3)
@@ -906,7 +937,8 @@ def flash_kernel_phase(card: dict, dev) -> dict:
             tc_ms = 3 * ops / card["tf32"] * 1e3
             log(f"flash_fwd {model} {case} {shape}: max_abs_err vs plain "
                 f"{errs['plain']:.3e}, vs naive {errs['naive']:.3e} (tol "
-                f"{FLASH_TOL} x max(1, |plain|)); {ms:.4f} ms, bound "
+                f"{FLASH_TOL} x max(1, |plain|)); {ms:.4f} ms on the "
+                f"device (back-to-back calls {call_ms:.4f} ms), bound "
                 f"{b_ms:.4f} ms ({b_by}: {ops / 1e9:.3f} GFLOP, "
                 f"{nbytes / 1e6:.1f} MB; {ops / ms / 1e9:.2f} TFLOP/s, "
                 f"{nbytes / ms / 1e9:.3f} TB/s achieved), 3xTF32 on the "
@@ -914,8 +946,9 @@ def flash_kernel_phase(card: dict, dev) -> dict:
                 f"{card['tf32'] / 1e12:.0f} TFLOP/s), plain {plain_ms:.3f} "
                 f"ms, library {lib_ms:.4f} ms (scaled_dot_product_attention,"
                 f" float32, {how}); kernel / library {ms / lib_ms:.3f}")
-            out[hd, case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, max_abs_err=errs["plain"],
+            out[hd, case] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 max_abs_err=errs["plain"],
                                  library_ms=lib_ms)
     # the prefill at other head widths, outside the main path: 72 is
     # zero-filled to the 80-wide instance, 128 takes 64 queries a CTA
@@ -931,7 +964,7 @@ def flash_kernel_phase(card: dict, dev) -> dict:
         del got, want
         nbytes, ops = flash_work(B, S, H, H, w, S, True)
         b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
-        ms = time_ms(lambda: flash_fwd(qw, kw, vw, causal=True))
+        ms = device_ms(lambda: flash_fwd(qw, kw, vw, causal=True))
         lib_ms, _ = sdpa_ms(qw, kw, vw, S, True)
         log(f"flash_fwd prefill at hd {w}, MHA (B {B}, S {S}, H {H}): "
             f"max_abs_err vs plain {err:.3e}; {ms:.4f} ms, bound "
@@ -1023,11 +1056,12 @@ def flash_audio_phase(card: dict, dev) -> dict:
             continue
         nbytes, ops = flash_work(B, Sq, H, H, hd, kv_len, causal)
         b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
-        ms = time_ms(run)
+        ms, call_ms = device_ms(run), time_ms(run)
         plain_ms = time_ms(lambda: flash_attention_chunked_ref(*folded, **kw),
                            reps=1, windows=3)
         lib_ms, how = sdpa_ms(q, k, v, kv_len, causal)
-        log(f"{head}; {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        log(f"{head}; {ms:.4f} ms on the device (back-to-back calls "
+            f"{call_ms:.4f} ms), bound {b_ms:.4f} ms ({b_by}: "
             f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB; "
             f"{ops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s "
             f"achieved), 3xTF32 on the tensor cores "
@@ -1035,9 +1069,10 @@ def flash_audio_phase(card: dict, dev) -> dict:
             f"library {lib_ms:.4f} ms (scaled_dot_product_attention, "
             f"float32, {how}); kernel / library {ms / lib_ms:.3f}; "
             f"serve_seamless's {where} call")
-        out[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, max_abs_err=errs["plain"],
-                         library_ms=lib_ms, launches=None)
+        out[case] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=errs["plain"], library_ms=lib_ms,
+                         launches=None)
     return out
 
 
@@ -1208,7 +1243,8 @@ def train_breakdown(dev, spec: dict, model, B: int, step_s: float) -> None:
              SyntheticTokens(cfg, B, S, spec["seed"]).batch_at(100).items()}
     step_fn(model, state, batch)                              # warm-up
     flash_fwd.launches = 0
-    busy, n, kinds = device_busy(lambda: step_fn(model, state, batch))
+    busy, n, kinds, _ = device_busy(
+        lambda: step_fn(model, state, batch))
     check(flash_fwd.launches == cfg.n_layers,
           f"train_stablelm breakdown: {flash_fwd.launches} flash launches "
           f"a step")
@@ -1216,7 +1252,7 @@ def train_breakdown(dev, spec: dict, model, B: int, step_s: float) -> None:
     grads = dict(zip(named, torch.autograd.grad(loss,
                                                 list(named.values()))))
     del loss
-    opt_busy, opt_n, _ = device_busy(lambda: opt.update(
+    opt_busy, opt_n, _, _ = device_busy(lambda: opt.update(
         clip_by_global_norm(grads, 1.0)[0], state, named))
     del grads, state
     torch.cuda.empty_cache()
@@ -1225,7 +1261,7 @@ def train_breakdown(dev, spec: dict, model, B: int, step_s: float) -> None:
     q, k, v, do = (torch.randn((B, S, H, hd), generator=gen, device=dev)
                    for _ in range(4))
     o = flash_fwd(q, k, v, causal=True)
-    att_busy, att_n, att_kinds = device_busy(lambda: [
+    att_busy, att_n, att_kinds, _ = device_busy(lambda: [
         attention_grads(q, k, v, o, do, causal=True, window=0)
         for _ in range(cfg.n_layers)])
     if busy is None or opt_busy is None or att_busy is None:
@@ -1457,18 +1493,20 @@ def paged_kernel_phase(card: dict, dev) -> dict:
         if timed:
             nbytes, ops = paged_work(table, lengths, page, H, K, hd)
             b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
-            ms = time_ms(run)
+            ms, call_ms = device_ms(run), time_ms(run)
             plain_ms = time_ms(lambda: paged_attention_online_ref(
                 q, kp, vp, pt, ln), reps=1, windows=3)
-            k4_ms = time_ms(k4)
-            line += (f"; {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            k4_ms = device_ms(k4)
+            line += (f"; {ms:.4f} ms on the device (back-to-back calls "
+                     f"{call_ms:.4f} ms), bound {b_ms:.4f} ms ({b_by}: "
                      f"{nbytes / 1e6:.1f} MB of unique pages, "
                      f"{ops / 1e9:.3f} GFLOP; {nbytes / ms / 1e9:.3f} TB/s "
                      f"achieved), plain {plain_ms:.3f} ms, K4 over the "
                      f"contiguous copy ({B} calls) {k4_ms:.4f} ms, library "
                      f"- (no torch call reads through a page table)")
-            out[case] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, max_abs_err=errs["plain"],
+            out[case] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=errs["plain"],
                              k4_contiguous_ms=k4_ms)
         flash_fwd.launches = flash_before   # comparisons are not the path's
         log(line)
@@ -1599,10 +1637,10 @@ KERNEL_KINDS = (("flash_", "flash_fwd"), ("ssd_", "ssd_chunked"),
 
 
 def device_busy(fn) -> tuple:
-    """(device busy ms, kernels, busy ms by kind) of one call of ``fn``
-    under torch.profiler: the summed durations of the CUDA kernels it ran
-    (one stream, so they do not overlap); (None, 0, {}) if the profiler
-    saw no device activity."""
+    """(device busy ms, kernels, busy ms by kind, kernels by kind) of one
+    call of ``fn`` under torch.profiler: the summed durations of the CUDA
+    kernels it ran (one stream, so they do not overlap); (None, 0, {},
+    {}) if the profiler saw no device activity."""
     import torch
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1612,13 +1650,15 @@ def device_busy(fn) -> tuple:
         torch.cuda.synchronize()
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
-        return None, 0, {}
+        return None, 0, {}, {}
     kinds: dict = {}
+    counts: dict = {}
     for e in kern:
         kind = next((k for frag, k in KERNEL_KINDS
                      if frag in e.name.lower()), "other")
         kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
-    return sum(kinds.values()), len(kern), kinds
+        counts[kind] = counts.get(kind, 0) + 1
+    return sum(kinds.values()), len(kern), kinds, counts
 
 
 def spec_model(dev, spec: dict):
@@ -1764,8 +1804,15 @@ def serve_breakdown(dev, spec: dict, groups: dict, kernels: tuple,
                                                     tok))):
         t0 = time.perf_counter()
         (out[f"{what}_busy_ms"], out[f"{what}_kernels"],
-         out[f"{what}_kinds"]) = device_busy(fn)
+         out[f"{what}_kinds"], out[f"{what}_counts"]) = device_busy(fn)
         out[f"{what}_traced_s"] = time.perf_counter() - t0
+    if "flash_fwd" in wrappers and out["decode_busy_ms"] is not None:
+        # one CUDA kernel a flash_fwd call, whatever its configuration
+        n = out["decode_counts"].get("flash_fwd", 0)
+        check(n == out["decode_launches"]["flash_fwd"],
+              f"{spec['arch']}: {n} flash kernels under the profiler in a "
+              f"decode step, {out['decode_launches']['flash_fwd']:g} "
+              f"flash_fwd calls")
     return out
 
 
@@ -1800,7 +1847,8 @@ def log_breakdown(path: str, bd: dict, inner: tuple = ()) -> None:
                f"{wall:.3f} ms of untraced warm wall: the device idles "
                f"{1 - busy / wall:.1%} (traced wall "
                f"{bd[f'{what}_traced_s'] * 1e3:.3f} ms); busy by kind "
-               + ", ".join(f"{k} {t:.3f} ms ({t / busy:.1%})" for k, t in
+               + ", ".join(f"{k} {t:.3f} ms ({t / busy:.1%}, "
+                           f"{bd[f'{what}_counts'][k]} kernels)" for k, t in
                            sorted(bd[f"{what}_kinds"].items(),
                                   key=lambda kv: -kv[1]))))
 
@@ -2073,7 +2121,8 @@ def check_figures(dev, figs: dict) -> dict:
         gated_n, ok_n, dev_max = band_check(
             sweep_figure_rows(family, fig["rows"]), committed_rows(family),
             f"figures {family}")
-        busy, kernels, kinds = device_busy(lambda: fn(**kw, device=dev))
+        busy, kernels, kinds, _ = device_busy(
+            lambda: fn(**kw, device=dev))
         scan_ms = kinds.get(kernel, 0.0)
         walls = sorted({r["walltime_s"] for r in fig["rows"]
                         if "walltime_s" in r})
@@ -2120,6 +2169,10 @@ def check_figures(dev, figs: dict) -> dict:
 
 def main() -> int:
     import torch
+    kernels_only = sys.argv[1:] == ["--kernels"]
+    if sys.argv[1:] and not kernels_only:
+        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -2165,6 +2218,10 @@ def main() -> int:
     kernels["flash_fwd"]["hd64_audio"] = flash_audio_phase(card, dev)
     kernels["flash_fwd"]["gradient"] = flash_grad_phase(card, dev)
     kernels["paged_decode"] = paged_kernel_phase(card, dev)
+    if kernels_only:
+        log(f"--kernels: the kernel phases only, no path driven; "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     wrappers = {"maxplus_chunked": mp_kernel.maxplus_chunked,
                 "maxplus_seq": mp_kernel.maxplus_seq,
                 "ssd_chunked": ssm_scan_kernel, "flash_fwd": flash_fwd,
@@ -2260,11 +2317,11 @@ def main() -> int:
             got, plain = (mp_kernel.maxplus_chunked(a, s),
                           maxplus_chunked_ref(a, s))
             check(rel_err(got, plain) <= 1e-12, f"{path} shape: K1 error")
-            ms = time_ms(lambda: mp_kernel.maxplus_chunked(a, s))
+            ms = device_ms(lambda: mp_kernel.maxplus_chunked(a, s))
         else:
             got, plain = mp_kernel.maxplus_seq(a, s), maxplus_depart_ref(a, s)
             check(torch.equal(got, plain), f"{path} shape: K2 not bitwise")
-            ms = time_ms(lambda: mp_kernel.maxplus_seq(a, s))
+            ms = device_ms(lambda: mp_kernel.maxplus_seq(a, s))
         b_ms, b_by = bound_ms(card, 3 * a.numel() * 8, 2 * a.numel(),
                               torch.float64)
         share = by_path[name][path] * ms * 1e-3 / info["device_s"]

@@ -52,12 +52,36 @@
 //     here already write exact TF32 planes, K head-contiguous and V
 //     transposed, so writing them swizzled is the next step; this first
 //     tensor-core design keeps to one warp per 16 rows.
-//   * rows (Sq <= 4, decode): one CTA per (row, query), so a one-token
-//     decode does not pad its query to a 64-row tile at 64x the work.  Each
-//     of the 8 warps walks every 8th group of 8 keys; a lane holds head
-//     dims lane + 32 j of q and of acc, the score is a warp sum, and the
-//     warps' (m, l, acc) are merged through shared memory at the end.
-//     Float32 FMAs on the CUDA cores.
+//   * decode (Sq <= 4): one CTA cluster per (sequence, KV head) and pass
+//     of query rows (one pass up to 4 rows, passes of 8 where a GQA group
+//     has more), of n_split CTAs (1..8, the portable cluster size;
+//     kernel.py's decode_splits picks it from B K, the rows, Skv and the
+//     SM count, never from kv_len) that split the key range [lo, hi) into
+//     shares of whole 64-key tiles.
+//     Each CTA serves every query row of its pass, so a key is read from
+//     device memory once for the G query heads that share it, not G
+//     times.  Its 8 warps take the CTA's keys 8 at a time in turn, each
+//     warp with its own loads in flight and its own online softmax, and
+//     no barrier until the merge; serving 2 to 4 rows, a warp loads its
+//     next 8 keys while it scores these.  A lane holds head columns lane + 32 j
+//     of the step's 8 keys, so each load is a whole row of K or V, and
+//     of each query row's q and acc.  A row's 8 partial dots are
+//     reduce-scattered across the warp (three halving rounds, then two
+//     full ones: 9 shuffles, each lane left with one key's score), the
+//     softmax's max and sum over the 8 keys take three rounds each, and
+//     p v takes each key's p by one shuffle.  Float32 FMAs on the CUDA
+//     cores.  The warps' (m, l, acc) merge in shared memory; then each
+//     CTA syncs the cluster, rank r merges rows r, r + n_split, ... from
+//     its peers' shared memory (distributed shared memory) and writes
+//     them, and a second cluster sync keeps every CTA's shared memory
+//     alive until its peers have read it (a cluster of one CTA writes its
+//     rows at once).  A split whose tiles lie past kv_len loads nothing
+//     and joins both syncs with m = NEG_INF, l = 0.
+//     One launch (cudaLaunchKernelEx with a cluster dimension): no second
+//     merge kernel, no atomics.  Registers hold the keys in flight, not a
+//     ring of shared-memory tiles: a cp.async ring of three 64-key stages,
+//     with its arithmetic taken out, streamed slower than these loads at
+//     one query head a KV head (PERF.md, section 6).
 // Both take the same key range [lo, hi) from the masks, so KV tiles no
 // query can reach are never loaded (the TPU kernel's block skip), and both
 // apply the same mask function to every score.  No library.  One launch
@@ -81,8 +105,13 @@
 // the CUDA cores, the bound chip_smoke.py reports; in 3xTF32 the tensor
 // cores do three times that, 0.26 ms at 495 TFLOP/s TF32 (mma.sync
 // reaches only part of that rate).  It moves 335.5 MB (0.10 ms at 3.35
-// TB/s).  Decode at kv_len about 1040: reading the valid K and V, about
-// 170 MB (0.05 ms), binds.
+// TB/s).  Decode: reading the valid K and V once binds.  At kv_len 1025
+// that is 168.1 MB (0.0502 ms) for stablelm-3b's 32 KV heads of 80 and
+// 67 MB (0.0201 ms) for seamless-m4t-large-v2's 16 of 64 and
+// mixtral-8x7b's 8 of 128; the FMAs, 2 G Sq per K/V float, take 2.5% (G
+// 1) to 10% (G 4) of the CUDA cores' float32 rate at that byte rate.  The
+// CTAs the grid needs to stream at that rate come from the key splits.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -93,12 +122,10 @@ namespace {
 // yet has s = m' = NEG_INF, and exp(-inf - -inf) would be nan.  The
 // exponential is then re-masked by a select, not a product (exp(0) = 1).
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;    // threads of a rows CTA
 constexpr int kBK = 64;          // keys of a KV tile
 constexpr int kMaxHd = 128;
-constexpr int kRowsMaxSq = 4;    // Sq at or below which each query has a CTA
-constexpr int kWarps = kThreads / 32;
-constexpr int kU = 8;            // keys a warp takes per step (rows config)
+constexpr int kDecodeMaxSq = 4;  // Sq at or below which decode is taken
+constexpr int kMaxSplit = 8;     // key splits a cluster: the portable size
 
 struct Shape {
   int B, Sq, Skv, H, K, hd, seq_k, causal, window;
@@ -545,111 +572,257 @@ flash_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------- rows configuration
+// ----------------------------------------------------- decode configuration
 
-template <int DJ>
-__global__ void __launch_bounds__(kThreads)
-flash_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o,
-                  const int* __restrict__ kv_len, Shape sh) {
-  __shared__ float sM[kWarps], sL[kWarps];
-  __shared__ float sAcc[kWarps][kMaxHd];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int hd = sh.hd;
-  const int r = blockIdx.x, qp = blockIdx.y;
-  const int b = r / sh.H, h = r % sh.H, kvh = h / (sh.H / sh.K);
-  const int seq_k = true_len(kv_len, sh);
-  const int64_t k_step = static_cast<int64_t>(sh.K) * hd;
-  const int64_t qo = ((static_cast<int64_t>(b) * sh.Sq + qp) * sh.H + h) * hd;
-  const float* kb = k + (static_cast<int64_t>(b) * sh.Skv * sh.K + kvh) * hd;
-  const float* vb = v + (static_cast<int64_t>(b) * sh.Skv * sh.K + kvh) * hd;
+constexpr int kDecWarps = 8;  // warps of a decode CTA
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kStepKeys = 8;  // keys a warp takes a step
 
-  float qv[DJ], acc[DJ];
+// Shared memory of a decode CTA serving up to `rows` query rows, floats:
+// each warp's (m, l, acc), and the CTA's, which its cluster peers read.
+__host__ __device__ __forceinline__ int dec_smem_floats(int hd, int rows) {
+  return (kDecWarps + 1) * rows * (hd + 2);
+}
+
+// Reduce-scatter of the 8 keys' partial dots of a lane across the warp:
+// after three halving rounds (xor 16, 8, 4) and two full ones (xor 2, 1),
+// 9 shuffles in all, each lane holds the whole score of key (lane >> 2) &
+// 7.
+__device__ __forceinline__ float reduce_scatter8(float (&x)[kStepKeys],
+                                                 int lane) {
 #pragma unroll
-  for (int j = 0; j < DJ; ++j) {
-    const int col = lane + 32 * j;
-    qv[j] = col < hd ? q[qo + col] : 0.f;
-    acc[j] = 0.f;
+  for (int h = 4, off = 16; h >= 1; h >>= 1, off >>= 1) {
+    const bool up = lane & off;  // keeps the upper half of its values
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? x[i] : x[i + h];
+      const float keep = up ? x[i + h] : x[i];
+      x[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
   }
-  float m = kNegInf, l = 0.f;
-  int lo, hi;
-  key_range(qp, qp, seq_k, sh, &lo, &hi);
-  for (int t0 = lo + w * kU; t0 < hi; t0 += kWarps * kU) {
-    float kk[kU][DJ], vv[kU][DJ];
+  float s = x[0];
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return s;
+}
+
+// Keys k0..k0 + 7 of K and V, columns lane + 32 j of each; keys at or past
+// `end` are 0 and never loaded.
+template <int DJ>
+__device__ __forceinline__ void load_step(float (&kk)[kStepKeys][DJ],
+                                          float (&vv)[kStepKeys][DJ],
+                                          const float* kb, const float* vb,
+                                          int64_t step, int k0, int end,
+                                          int hd, int lane) {
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const bool in = t0 + u < hi;  // keys past hi are masked: never loaded
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int col = lane + 32 * j;
-        const int64_t at = (t0 + u) * k_step + col;
-        kk[u][j] = in && col < hd ? kb[at] : 0.f;
-        vv[u][j] = in && col < hd ? vb[at] : 0.f;
-      }
-    }
-    float s[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) part = fmaf(qv[j], kk[u][j], part);
-      s[u] = part;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-      for (int u = 0; u < kU; ++u)
-        s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
-    bool vis[kU];
-    float mx = kNegInf;
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      vis[u] = visible(qp, t0 + u, sh.Sq, seq_k, sh);
-      s[u] = vis[u] ? s[u] * sh.scale : kNegInf;
-      mx = fmaxf(mx, s[u]);
-    }
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    float p[kU], sum = 0.f;
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      p[u] = vis[u] ? expf(s[u] - m_new) : 0.f;  // select, not * mask
-      sum += p[u];
-    }
-    l = l * corr + sum;
+  for (int u = 0; u < kStepKeys; ++u) {
+    const bool in = k0 + u < end;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      float a = acc[j] * corr;
-#pragma unroll
-      for (int u = 0; u < kU; ++u) a = fmaf(p[u], vv[u][j], a);
-      acc[j] = a;
+      const int col = lane + 32 * j;
+      const int64_t at = (k0 + u) * step + col;
+      kk[u][j] = in && col < hd ? kb[at] : 0.f;
+      vv[u][j] = in && col < hd ? vb[at] : 0.f;
     }
-    m = m_new;
+  }
+}
+
+// One cluster of n_split CTAs (gridDim.x = B K n_split, the cluster along
+// x) per (b, KV head) and pass of up to RMAX query rows (blockIdx.y): the
+// CTA of rank `split` takes the split-th share of the pass's 64-key tiles
+// and every query row of the pass, row r = qp G + g for query qp of head
+// kvh G + g.  A lane holds head columns lane + 32 j, j < DJ.
+template <int DJ, int RMAX>
+__global__ void __launch_bounds__(kDecThreads, RMAX == 1 ? 2 : 1)
+flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    const int* __restrict__ kv_len, Shape sh) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = static_cast<int>(cluster.num_blocks());
+  const int split = static_cast<int>(cluster.block_rank());
+  const int bk = blockIdx.x / n_split;
+  const int b = bk / sh.K, kvh = bk - b * sh.K;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hd = sh.hd;
+  const int G = sh.H / sh.K, R = G * sh.Sq;
+  const int rows = min(R, RMAX);  // rows the shared memory is sized for
+  const int row0 = blockIdx.y * RMAX, nr = min(RMAX, R - row0);
+
+  extern __shared__ float dsm[];
+  float* sAccW = dsm;                              // [warp][rows][hd]
+  float* sAcc = sAccW + kDecWarps * rows * hd;     // [rows][hd]
+  float* sMw = sAcc + rows * hd;                   // [warp][rows]
+  float* sLw = sMw + kDecWarps * rows;
+  float* sM = sLw + kDecWarps * rows;              // [rows]
+  float* sL = sM + rows;
+
+  // the pass's keys [lo, hi) and this CTA's tiles of them, [kfirst, kend)
+  const int seq_k = true_len(kv_len, sh);
+  int lo, hi;
+  key_range(row0 / G, (row0 + nr - 1) / G, seq_k, sh, &lo, &hi);
+  const int ntiles = hi > lo ? (hi - lo + kBK - 1) / kBK : 0;
+  const int kfirst = lo + split * ntiles / n_split * kBK;
+  const int kend = min(hi, lo + (split + 1) * ntiles / n_split * kBK);
+
+  const int64_t q_row = static_cast<int64_t>(sh.H) * hd;  // token stride
+  const int64_t k_step = static_cast<int64_t>(sh.K) * hd;
+  const float* kb = k + (static_cast<int64_t>(b) * sh.Skv * sh.K + kvh) * hd;
+  const float* vb = v + (static_cast<int64_t>(b) * sh.Skv * sh.K + kvh) * hd;
+  const float sl2 = sh.scale * 1.4426950408889634f;  // scale * log2 e
+  const int sk = (lane >> 2) & 7;  // the key whose score a lane ends with
+  int qp[RMAX];
+  float qv[RMAX][DJ], acc[RMAX][DJ], m[RMAX], l[RMAX];
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    const int gr = row0 + min(r, nr - 1);
+    qp[r] = gr / G;
+    const float* qr =
+        q + (b * sh.Sq + qp[r]) * q_row + (kvh * G + gr % G) *
+        static_cast<int64_t>(hd);
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const int col = lane + 32 * j;
+      qv[r][j] = col < hd ? qr[col] : 0.f;
+      acc[r][j] = 0.f;
+    }
+    m[r] = kNegInf;
+    l[r] = 0.f;
   }
 
-  if (lane == 0) {
-    sM[w] = m;
-    sL[w] = l;
-  }
+  // the warps take the CTA's keys 8 at a time in turn, each its own online
+  // softmax and no barrier until the merge.  With 2 to 4 rows a warp's
+  // next 8 keys are in flight while it scores these (a row's arithmetic is
+  // short enough for the other warps' loads to cover, and 8 rows leave no
+  // registers for a second step)
+  constexpr bool kAhead = RMAX > 1 && RMAX <= 4;
+  constexpr int kRound = kDecWarps * kStepKeys;
+  float kk[kStepKeys][DJ], vv[kStepKeys][DJ];
+  if (kAhead)
+    load_step(kk, vv, kb, vb, k_step, kfirst + warp * kStepKeys, kend, hd,
+              lane);
+  for (int k0 = kfirst + warp * kStepKeys; k0 < kend; k0 += kRound) {
+    float nk[kStepKeys][DJ], nv[kStepKeys][DJ];
+    if (kAhead)
+      load_step(nk, nv, kb, vb, k_step, k0 + kRound, kend, hd, lane);
+    else
+      load_step(kk, vv, kb, vb, k_step, k0, kend, hd, lane);
+    const bool vis_key = k0 + sk < kend;
+    // every row of the instance, so that the rows' chains interleave; a
+    // pass's rows past nr repeat its last one and are never stored
 #pragma unroll
-  for (int j = 0; j < DJ; ++j) {
-    const int col = lane + 32 * j;
-    if (col < hd) sAcc[w][col] = acc[j];
+    for (int r = 0; r < RMAX; ++r) {
+      float part[kStepKeys];
+#pragma unroll
+      for (int u = 0; u < kStepKeys; ++u) {
+        float a = 0.f;
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) a = fmaf(qv[r][j], kk[u][j], a);
+        part[u] = a;
+      }
+      const float s = reduce_scatter8(part, lane);
+      // the online softmax over the step's keys in log2 units, a lane
+      // holding key sk's score: masked scores are kNegInf and their
+      // exponentials selected to 0
+      const bool vis = vis_key && visible(qp[r], k0 + sk, sh.Sq, seq_k, sh);
+      const float x = vis ? s * sl2 : kNegInf;
+      float mx = x;
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float m_new = fmaxf(m[r], mx);
+      const float p = vis ? exp2_approx(x - m_new) : 0.f;  // select
+      float sum = p;
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+      const float corr = exp2_approx(m[r] - m_new);
+      l[r] = l[r] * corr + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[r][j] *= corr;
+#pragma unroll
+      for (int u = 0; u < kStepKeys; ++u) {
+        const float pu = __shfl_sync(0xffffffffu, p, u << 2);
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[r][j] = fmaf(pu, vv[u][j], acc[r][j]);
+      }
+    }
+    if (kAhead)
+#pragma unroll
+      for (int u = 0; u < kStepKeys; ++u)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          kk[u][j] = nk[u][j];
+          vv[u][j] = nv[u][j];
+        }
+  }
+
+  // each warp's (m, l, acc), then the CTA's
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    if (r >= nr) break;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      const int col = lane + 32 * j;
+      if (col < hd) sAccW[(warp * rows + r) * hd + col] = acc[r][j];
+    }
+    if (lane == 0) {
+      sMw[warp * rows + r] = m[r];
+      sLw[warp * rows + r] = l[r];
+    }
   }
   __syncthreads();
-  if (threadIdx.x < hd) {
+  for (int e = tid; e < nr * hd; e += kDecThreads) {
+    const int r = e / hd;
     float M = kNegInf;
 #pragma unroll
-    for (int i = 0; i < kWarps; ++i) M = fmaxf(M, sM[i]);
-    float L = 0.f, O = 0.f;
+    for (int w = 0; w < kDecWarps; ++w) M = fmaxf(M, sMw[w * rows + r]);
+    float L = 0.f, A = 0.f;
 #pragma unroll
-    for (int i = 0; i < kWarps; ++i) {
-      const float e = expf(sM[i] - M);  // 0 for a warp that saw no key
-      L += sL[i] * e;
-      O += sAcc[i][threadIdx.x] * e;
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float wt = exp2_approx(sMw[w * rows + r] - M);  // 0: no key
+      L = fmaf(sLw[w * rows + r], wt, L);
+      A = fmaf(sAccW[w * rows * hd + e], wt, A);
     }
-    o[qo + threadIdx.x] = O / fmaxf(L, 1e-30f);
+    if (n_split == 1) {  // the CTA saw every key: its rows are done
+      const int gr = row0 + r;
+      o[(b * sh.Sq + gr / G) * q_row +
+        (kvh * G + gr % G) * static_cast<int64_t>(hd) + e - r * hd] =
+          A / fmaxf(L, 1e-30f);
+      continue;
+    }
+    sAcc[e] = A;
+    if (e - r * hd == 0) {
+      sM[r] = M;
+      sL[r] = L;
+    }
   }
+  if (n_split == 1) return;
+
+  // merge: every CTA's (m, l, acc) is in its shared memory; rank `split`
+  // merges rows split, split + n_split, ... reading its peers' through
+  // distributed shared memory, and writes them
+  cluster.sync();
+  const int mine = nr > split ? (nr - split + n_split - 1) / n_split : 0;
+  for (int e = tid; e < mine * hd; e += kDecThreads) {
+    const int r = split + n_split * (e / hd), col = e % hd;
+    float M = kNegInf;
+    for (int j = 0; j < n_split; ++j)
+      M = fmaxf(M, *cluster.map_shared_rank(sM + r, j));
+    float L = 0.f, O = 0.f;
+    for (int j = 0; j < n_split; ++j) {
+      // 0 for a CTA that saw no key of the row
+      const float wt = exp2_approx(*cluster.map_shared_rank(sM + r, j) - M);
+      L = fmaf(*cluster.map_shared_rank(sL + r, j), wt, L);
+      O = fmaf(*cluster.map_shared_rank(sAcc + r * hd + col, j), wt, O);
+    }
+    const int gr = row0 + r;
+    o[(b * sh.Sq + gr / G) * q_row +
+      (kvh * G + gr % G) * static_cast<int64_t>(hd) + col] =
+        O / fmaxf(L, 1e-30f);
+  }
+  cluster.sync();  // peers' shared memory stays until every read is done
 }
 
 template <int HDP>
@@ -667,13 +840,50 @@ int launch_tile(const float* q, const float* k, const float* v, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DJ>
-int launch_rows(const float* q, const float* k, const float* v, float* o,
-                const int* kv_len, const Shape& sh, cudaStream_t stream) {
-  const dim3 grid(sh.B * sh.H, sh.Sq);
-  flash_rows_kernel<DJ><<<grid, kThreads, 0, stream>>>(q, k, v, o, kv_len,
-                                                       sh);
+template <int DJ, int RMAX>
+int launch_decode(const float* q, const float* k, const float* v, float* o,
+                  const int* kv_len, const Shape& sh, int n_split,
+                  cudaStream_t stream) {
+  const int R = sh.H / sh.K * sh.Sq;
+  // at most 37,440 bytes (8 rows of 128), under the 48 KB a launch may
+  // take without raising the kernel's limit
+  const size_t smem =
+      sizeof(float) * dec_smem_floats(sh.hd, R < RMAX ? R : RMAX);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sh.B * sh.K * n_split, (R + RMAX - 1) / RMAX);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, flash_decode_kernel<DJ, RMAX>, q, k, v, o, kv_len, sh);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The decode instance for the head's width (DJ columns a lane) and the
+// rows of a pass: one head at one query; up to 4 (a GQA group of 4 at one
+// query, or one head at four); larger groups in passes of 8.
+template <int RMAX>
+int launch_decode_rows(const float* q, const float* k, const float* v,
+                       float* o, const int* kv_len, const Shape& sh,
+                       int n_split, cudaStream_t stream) {
+  switch ((sh.hd + 31) / 32) {
+    case 1:
+      return launch_decode<1, RMAX>(q, k, v, o, kv_len, sh, n_split, stream);
+    case 2:
+      return launch_decode<2, RMAX>(q, k, v, o, kv_len, sh, n_split, stream);
+    case 3:
+      return launch_decode<3, RMAX>(q, k, v, o, kv_len, sh, n_split, stream);
+    default:
+      return launch_decode<4, RMAX>(q, k, v, o, kv_len, sh, n_split, stream);
+  }
 }
 
 }  // namespace
@@ -681,15 +891,18 @@ int launch_rows(const float* q, const float* k, const float* v, float* o,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (or the error of
-// raising the kernel's shared-memory limit).  q, o: (B, Sq, H, hd); k, v:
-// (B, Skv, K, hd); all contiguous float32; H % K == 0, 1 <= hd <= 128.
-// kv_len: a device int32 holding the valid KV length, or null for seq_k.
+// raising the kernel's shared-memory limit or of the cluster launch).
+// q, o: (B, Sq, H, hd); k, v: (B, Skv, K, hd); all contiguous float32;
+// H % K == 0, 1 <= hd <= 128.  kv_len: a device int32 holding the valid
+// KV length, or null for seq_k.  n_split: the decode configuration's key
+// splits, 1..8 (kernel.py's decode_splits); Sq > 4 ignores it.
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                   const void* kv_len, int B, int Sq, int Skv, int H, int K,
-                  int hd, int seq_k, int causal, int window, float scale,
-                  void* stream) {
+                  int hd, int seq_k, int causal, int window, int n_split,
+                  float scale, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || H < 1 || K < 1 || H % K != 0 ||
-      hd < 1 || hd > kMaxHd || window < 0)
+      hd < 1 || hd > kMaxHd || window < 0 || n_split < 1 ||
+      n_split > kMaxSplit)
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{B, Sq, Skv, H, K, hd, seq_k, causal != 0, window, scale};
   const auto* qf = static_cast<const float*>(q);
@@ -698,13 +911,13 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
   auto* of = static_cast<float*>(o);
   const auto* len = static_cast<const int*>(kv_len);
   auto st = static_cast<cudaStream_t>(stream);
-  if (Sq <= kRowsMaxSq) {
-    switch ((hd + 31) / 32) {
-      case 1: return launch_rows<1>(qf, kf, vf, of, len, sh, st);
-      case 2: return launch_rows<2>(qf, kf, vf, of, len, sh, st);
-      case 3: return launch_rows<3>(qf, kf, vf, of, len, sh, st);
-      default: return launch_rows<4>(qf, kf, vf, of, len, sh, st);
-    }
+  if (Sq <= kDecodeMaxSq) {
+    const int rows = H / K * Sq;  // query rows a (b, KV head) serves
+    if (rows == 1)
+      return launch_decode_rows<1>(qf, kf, vf, of, len, sh, n_split, st);
+    if (rows <= 4)
+      return launch_decode_rows<4>(qf, kf, vf, of, len, sh, n_split, st);
+    return launch_decode_rows<8>(qf, kf, vf, of, len, sh, n_split, st);
   }
   switch ((hd + 7) / 8) {
     case 1: return launch_tile<8>(qf, kf, vf, of, len, sh, st);

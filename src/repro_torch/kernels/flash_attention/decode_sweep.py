@@ -1,0 +1,118 @@
+"""Device times of K4's decode configuration at every key split count, on
+a GPU: the evidence for ``kernel.decode_splits``, kept out of
+``chip_smoke.py`` so that the smoke does not pay for it.
+
+    PYTHONPATH=src python -m repro_torch.kernels.flash_attention.decode_sweep
+
+For each serve path's decode call (8 requests, one query over a
+1056-slot cache whose valid length, a device int32, is 1025; the audio
+cross-attention over 1024 frames; granite-20b's MQA group of 48) it
+prints the rule's split count and the device time (torch.profiler, 20
+back-to-back launches) at 1, 2, 4 and 8 splits, each against its byte
+bound, every split count's output held to the rule's within 2e-5 x
+max(1, |o|).  It then times mixtral-8x7b's GQA call (32 query heads over
+8 KV heads: the 4-row instance) against the same K and V read by 8 query
+heads (the 1-row instance), and prints the registers ptxas gave each
+decode instance and the CTAs of 256 threads those leave an SM.
+"""
+from __future__ import annotations
+
+import re
+
+import torch
+
+from .. import cuda_build
+from . import kernel as fk
+
+B, S_MAX, KV_LEN = 8, 1056, 1025
+HBM = 3.35e12        # an H100 SXM's device memory, bytes/s
+TOL = 2e-5
+# (what, H, K, hd, Skv, valid length or None for all of it)
+SHAPES = (("stablelm-3b", 32, 32, 80, S_MAX, KV_LEN),
+          ("zamba2-1.2b", 32, 32, 64, S_MAX, KV_LEN),
+          ("mixtral-8x7b", 32, 8, 128, S_MAX, KV_LEN),
+          ("mixtral-8x7b K/V, 8 query heads", 8, 8, 128, S_MAX, KV_LEN),
+          ("seamless-m4t-large-v2 decoder self", 16, 16, 64, S_MAX, KV_LEN),
+          ("seamless-m4t-large-v2 cross", 16, 16, 64, 1024, None),
+          ("granite-20b (MQA)", 48, 1, 128, S_MAX, KV_LEN))
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Summed durations of the CUDA kernels of ``calls`` calls, a call."""
+    from torch.autograd import DeviceType
+    for _ in range(3):   # the profiler, rarely, sees no kernel in a window
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / calls
+    raise RuntimeError("torch.profiler saw no device time")
+
+
+def registers() -> list:
+    """(head columns a lane / 32, rows, registers) of each decode
+    instance, from ptxas's log of this process's build."""
+    log = cuda_build.BUILD_LOG.get("flash_fwd", "")
+    out = []
+    for m in re.finditer(r"Compiling entry function '\S*flash_decode_kernel"
+                         r"ILi(\d+)ELi(\d+)E\S*'.*?Used (\d+) registers",
+                         log, re.S):
+        out.append(tuple(int(x) for x in m.groups()))
+    return sorted(set(out))
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("decode_sweep: needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(11)
+    sms = fk._sm_count(0)
+    cuda_build.build()
+    mixtral_k = None
+    for what, H, K, hd, skv, n in SHAPES:
+        if what.startswith("mixtral-8x7b K/V"):
+            k, v = mixtral_k   # the same K and V as the GQA call
+        else:
+            k, v = (torch.randn(B, skv, K, hd, generator=gen, device=dev)
+                    for _ in range(2))
+        if what == "mixtral-8x7b":
+            mixtral_k = k, v
+        q = torch.randn(B, 1, H, hd, generator=gen, device=dev)
+        kv_len = None if n is None else torch.tensor(
+            n, dtype=torch.int32, device=dev)
+        valid = skv if n is None else n
+        nbytes = 4 * (2 * B * H * hd + 2 * B * valid * K * hd)
+        bound = nbytes / HBM * 1e3
+        rule = fk.decode_splits(B * K, H // K, skv, sms)
+        want = fk._launch(q, k, v, False, 0, kv_len, rule)
+        scale = max(1.0, float(want.abs().max()))
+        times = []
+        for split in (1, 2, 4, 8):
+            if split > -(-skv // fk.TILE):
+                continue
+            got = fk._launch(q, k, v, False, 0, kv_len, split)
+            err = float((got - want).abs().max())
+            if err > TOL * scale:
+                raise AssertionError(f"{what}: {split} splits differ from "
+                                     f"{rule} by {err}")
+            ms = device_ms(lambda s=split: fk._launch(q, k, v, False, 0,
+                                                      kv_len, s))
+            times.append(f"{split} {ms:.4f} ms ({bound / ms:.0%})")
+        print(f"decode_sweep {what} (B {B}, H {H}, K {K}, hd {hd}, Skv "
+              f"{skv}, kv_len {valid}): bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB at {HBM / 1e12:.2f} TB/s); rule "
+              f"{rule} splits; at " + ", ".join(times), flush=True)
+    for dj, rows, regs in registers():
+        print(f"decode_sweep instance hd <= {32 * dj}, {rows} rows: {regs} "
+              f"registers a thread, {65536 // (256 * -(-regs // 8) * 8)} "
+              f"CTAs of 256 threads an SM by registers", flush=True)
+
+
+if __name__ == "__main__":
+    main()

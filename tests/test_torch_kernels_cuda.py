@@ -298,7 +298,14 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
 # decoder self-attention (causal), cross-attention in prefill with a
 # partial query tile and a partial KV tile (Sq != Skv), the decoder's
 # decode over a 1056-slot cache with 1025 valid, and cross-attention in
-# decode over every frame (no kv_len), at 1024 frames and at 1003
+# decode over every frame (no kv_len), at 1024 frames and at 1003.  Last
+# the decode configuration's clusters: query groups of 1, 4 and 48 (MQA;
+# at Sq 4 its 192 rows take 24 passes of 8) at Sq 1 to 4 under causal
+# and window masks; a device kv_len of 0 (no valid key: zeros), 1, 70
+# (two of 16 tiles: all but two of the 8 splits empty), at the 8-tile
+# boundary where each split holds one tile and one either side (511, 512,
+# 513); caches whose slots are not a multiple of 64; heads of 7, 64, 72,
+# 80 and 128
 @pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,kv_len", [
     (2, 200, 200, 4, 4, 80, True, 0, None),
     (2, 64, 64, 4, 2, 64, True, 0, None),
@@ -329,14 +336,33 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
     (2, 1, 1056, 16, 16, 64, False, 0, 1025),
     (2, 1, 1024, 16, 16, 64, False, 0, None),
     (2, 1, 1003, 16, 16, 64, False, 0, None),
+    (2, 1, 300, 4, 4, 64, False, 0, 200),
+    (2, 2, 300, 8, 2, 64, True, 0, None),
+    (2, 4, 300, 8, 2, 80, True, 3, None),
+    (2, 1, 1056, 32, 8, 128, False, 0, 1025),
+    (2, 1, 1056, 48, 1, 128, False, 0, 1025),
+    (1, 4, 300, 48, 1, 128, True, 3, None),
+    (1, 3, 130, 48, 1, 72, False, 0, 100),
+    (2, 1, 1000, 8, 2, 64, False, 0, 0),
+    (2, 1, 1000, 8, 2, 7, False, 0, 1),
+    (2, 1, 1000, 8, 2, 72, False, 0, 70),
+    (2, 1, 1000, 8, 2, 80, False, 0, 511),
+    (2, 1, 1000, 8, 2, 128, False, 0, 512),
+    (2, 1, 1000, 8, 2, 64, False, 0, 513),
+    (2, 2, 1000, 8, 2, 7, True, 0, 513),
 ])
 def test_flash_kernel_vs_plain(cuda_device, B, Sq, Skv, H, K, hd, causal,
                                window, kv_len):
     q, k, v = flash_inputs(B, Sq, Skv, H, K, hd, Sq * hd + Skv)
     kw = dict(causal=causal, window=window)
-    want = flash_attention(q, k, v, kv_len=kv_len, **kw)
+    # a host 0 means every slot (the TPU kernel's seq_k); the device int32
+    # 0 of an empty cache means none
+    n0 = torch.tensor(0, dtype=torch.int32) if kv_len == 0 else kv_len
+    want = flash_attention(q, k, v, kv_len=n0, **kw)
     lens = [kv_len] if kv_len is None else [
         kv_len, torch.tensor(kv_len, dtype=torch.int32, device=cuda_device)]
+    if kv_len == 0:
+        lens = lens[1:]
     for n in lens:   # a host int, or the decode cache's device int32
         got = flash_attention(q.to(cuda_device), k.to(cuda_device),
                               v.to(cuda_device), kv_len=n, **kw)
@@ -348,7 +374,7 @@ def test_flash_kernel_vs_plain(cuda_device, B, Sq, Skv, H, K, hd, causal,
     fold = lambda t, r: t.transpose(1, 2).repeat_interleave(r, 1).reshape(
         -1, t.shape[1], hd)
     naive = flash_attention_ref(fold(q, 1), fold(k, G), fold(v, G),
-                                seq_k=kv_len or 0, **kw)
+                                seq_k=0 if kv_len is None else n0, **kw)
     torch.testing.assert_close(
         got.cpu(), naive.reshape(B, H, Sq, hd).transpose(1, 2), rtol=2e-5,
         atol=2e-5)
