@@ -29,7 +29,18 @@ batched sweep engine, ``run_sweep``:
   <= 1e-9 per column against the port's CPU run of the same point, and
   against the committed ``fig_scale`` rows of ``BENCH_sweep.json``;
 * closed loop ``fig_scale_1m``: 1000 groups x 1000 threads = 1M clients,
-  5M ops, checked against the committed ``fig_scale_1m`` rows.
+  5M ops, checked against the committed ``fig_scale_1m`` rows;
+* ``closed_blocks``: the closed sweep in point blocks,
+  ``benchmarks/run.py``'s per-device scaling grid (``closed_grid(threads=500, ops=1000)``, 16
+  points) at ``devices=1`` and at one block a visible GPU, cold and warm,
+  every column bitwise equal to ``devices=1``, the CPU's blocks within
+  1e-9, and ``ValueError`` one device past the visible ones; wall, host
+  and device split, blocks, rounds and K2 launches logged, not gated;
+* ``obs``: ``repro_torch.obs.profile_maxplus`` for K1 and K2 at (8, 4096)
+  and at ``fig_scale``'s scan grid, every CUDA key present and positive,
+  its ``device_ms`` beside this script's own for the same inputs; once in
+  a fresh process (the first call with the kernels' load); and the trace
+  CLI, ``python -m repro_torch.obs summarize``, on the committed sample.
 
 The end of that path, ``figures``: the figure runners of
 ``repro_torch.sim.experiments`` at ``benchmarks/run.py``'s arguments.
@@ -134,12 +145,16 @@ printed.  Without a GPU, or outside a checkout of the repository, it
 exits non-zero at once.
 
 Kernel times are device times, from torch.profiler over 20 back-to-back
-calls (``device_ms``), and beside them the wrapper's back-to-back time
-from CUDA events (``call_ms``), which for a kernel of tens of
-microseconds is the host's rate of calls.  ``python3 chip_smoke.py
---kernels`` stops after the kernel phases, drives no path and prints no
-result line: the quick way to hold two trees' kernels against each
-other in one call.
+calls (``device_ms``, on ``repro_torch.obs.profile.kernel_records``: a
+window whose records of a kernel are not a multiple of its calls fails
+the run), and beside them the wrapper's back-to-back time from CUDA
+events (``call_ms``), which for a kernel of tens of microseconds is the
+host's rate of calls.  ``python3 chip_smoke.py --kernels`` stops after
+the kernel phases, drives no path and prints no result line: the quick
+way to hold two trees' kernels against each other in one call.
+``--closed-blocks`` runs the closed sweep in point blocks alone, at one
+block and at one block a visible GPU (the run for a host of several
+cards), and prints no result line either.
 """
 from __future__ import annotations
 
@@ -150,6 +165,7 @@ import sys
 import time
 from pathlib import Path
 
+STARTED = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -176,6 +192,9 @@ SWEEP_RTOL = 1e-9
 # page-cache keys or None for the default), as benchmarks/run.py runs them
 CLOSED_PATHS = (("fig_scale", 100, 100, 1000, None),
                 ("fig_scale_1m", 1000, 1000, 5000, 10_000))
+# the closed sweep in point blocks: benchmarks/run.py's per-device scaling
+# grid, closed_grid(threads=500, ops=1000), 16 points
+CLOSED_BLOCKS = dict(threads=500, ops=1000)
 DEVICE = "cuda"
 # the SSD kernel against its plain version: max |kernel - plain| <= tol *
 # max(1, max |plain|), float32 sums over up to 384 terms in another order
@@ -657,43 +676,52 @@ SSD_STAGES = (("ssd_intra", "intra"), ("ssd_states", "states"),
               ("ssd_vec_states", "vec_states"), ("ssd_vec_out", "vec_out"))
 
 
+# the timing windows of stage_ms, their kernel records, and the kernels
+# whose records in a window were not a multiple of its calls, after
+# kernel_records's tries (records lost, or a stray): (kernel, records,
+# calls)
+PROFILER_RECORDS = {"windows": 0, "records": 0, "irregular": []}
+
+
 def stage_ms(fn, stages, calls: int = 5) -> dict:
-    """Device ms a call of each stage of ``fn``, from torch.profiler over
-    ``calls`` calls: ``stages`` maps a fragment of a CUDA kernel's name
-    to its stage; kernels that match none are summed under "other"."""
-    import torch
-    from torch.autograd import DeviceType
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    """Device ms a call of each stage of ``fn``: the summed durations of
+    each CUDA kernel over ``calls`` calls from torch.profiler
+    (``repro_torch.obs.profile.kernel_records``), over ``calls``;
+    ``stages`` maps a fragment of a CUDA kernel's name to its stage;
+    kernels that match none are summed under "other".  Windows that
+    stay irregular are tallied in ``PROFILER_RECORDS``."""
+    from repro_torch.obs.profile import irregular, kernel_records
+    per = kernel_records(fn, calls)
+    check(bool(per), "torch.profiler saw no device time in a window")
+    PROFILER_RECORDS["windows"] += 1
+    PROFILER_RECORDS["records"] += sum(n for n, _ in per.values())
+    PROFILER_RECORDS["irregular"] += [
+        (name, n, calls) for name, n in irregular(per, calls).items()]
     out: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        stage = next((s for f, s in stages if f in e.name), "other")
-        out[stage] = (out.get(stage, 0.0)
-                      + e.time_range.elapsed_us() / 1e3 / calls)
+    for name, (_, us) in per.items():
+        stage = next((s for f, s in stages if f in name), "other")
+        out[stage] = out.get(stage, 0.0) + us / calls / 1e3
     return out
 
 
-def device_ms(fn, calls: int = 20, tries: int = 3) -> float:
-    """Device ms a call of ``fn``: the summed durations of the CUDA
-    kernels torch.profiler sees over ``calls`` back-to-back calls, over
-    ``calls``.  Unlike ``time_ms`` it leaves out the host's cost a call
-    (checks, allocation, the ctypes call), which bounds a back-to-back
-    run of a kernel of tens of microseconds.  A window in which the
-    profiler saw no kernel (it happens, rarely) is profiled again, up to
-    ``tries`` times."""
-    for _ in range(tries):
-        ms = sum(stage_ms(fn, (), calls).values())
-        if ms > 0:
-            return ms
-    raise AssertionError(f"torch.profiler saw no device time in {tries} "
-                         f"windows")
+def device_ms(fn, calls: int = 20) -> float:
+    """Device ms a call of ``fn``: every kernel's, from ``stage_ms``.
+    Unlike ``time_ms`` it leaves out the host's cost a call (checks,
+    allocation, the ctypes call), which bounds a back-to-back run of a
+    kernel of tens of microseconds."""
+    return sum(stage_ms(fn, (), calls).values())
+
+
+def check_profiler_records() -> None:
+    """Log the timing windows' tally and fail if a window held a kernel
+    whose records were not a multiple of its calls after its tries: a
+    device time that lost records or counted a stray."""
+    r = PROFILER_RECORDS
+    log(f"torch.profiler: {r['windows']} timing windows, {r['records']} "
+        f"kernel records, {len(r['irregular'])} irregular "
+        f"(kernel, records, calls): {r['irregular'][:8]}")
+    check(not r["irregular"], "torch.profiler: a timing window's kernel "
+          "records are not a multiple of its calls")
 
 
 def call_peak_mb(fn, dev) -> float:
@@ -2167,11 +2195,161 @@ def check_figures(dev, figs: dict) -> dict:
     return busy_ms
 
 
+def closed_blocks_phase(dev, smi: str, drive) -> None:
+    """The closed sweep in point blocks: ``benchmarks/run.py``'s
+    per-device scaling grid (``CLOSED_BLOCKS``, 16 points) at one block
+    and at one block a visible GPU, each run cold (the path, its K2
+    launches counted) and warm (timed), every column of every run
+    bitwise equal to the first; the same grid's blocks in turn on the
+    CPU within ``SWEEP_RTOL``; one device past the visible ones raises
+    ``ValueError``.  The counterpart of ``sim.per_device_scaling.d*``:
+    logged, never gated."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.maxplus_scan import kernel as mp_kernel
+    from repro_torch.sim.sweep import closed_grid, run_sweep
+
+    grid = closed_grid(**CLOSED_BLOCKS)
+    count = torch.cuda.device_count()
+
+    def sweep(devices, device=dev):
+        return run_sweep(grid, loop="closed", seed=0, devices=devices,
+                         device=device)
+
+    def runs():
+        out = {}
+        for D in dict.fromkeys((1, count)):
+            n0 = mp_kernel.maxplus_seq.launches
+            cold = sweep(D)
+            n_cold = mp_kernel.maxplus_seq.launches - n0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            warm = sweep(D)
+            torch.cuda.synchronize()
+            out[D] = (cold, n_cold, warm, time.perf_counter() - t0)
+        return out
+
+    by_d = drive("closed_blocks", ("maxplus_seq",), runs)
+    first = by_d[1][0]
+    check(first.info["rounds"] is not None,
+          "closed_blocks: the grid took the host (eviction) path")
+    for D, (cold, n_cold, warm, warm_s) in by_d.items():
+        check(cold.info["rounds"] is not None and n_cold > 0,
+              f"closed_blocks devices={D}: no maxplus_seq launch")
+        for tag, res in (("cold", cold), ("warm", warm)):
+            for k, w in first.columns.items():
+                check(np.array_equal(res.columns[k], w, equal_nan=True),
+                      f"closed_blocks devices={D} {tag}: column {k} not "
+                      f"bitwise equal to devices=1")
+        i = cold.info
+        log(f"closed_blocks devices={D}: {len(grid)} points "
+            f"({CLOSED_BLOCKS}), {int(cold.columns['ops'].sum())} ops, "
+            f"{i['blocks']} block(s) of grid {i['grid']}, {i['rounds']} "
+            f"rounds, {n_cold} maxplus_seq launches; cold wall "
+            f"{cold.walltime_s:.3f} s (host {i['host_s']:.3f} s of which "
+            f"planning {i['plan_s']:.3f} s, device {i['device_s']:.3f} s), "
+            f"warm wall {warm_s:.3f} s (device {warm.info['device_s']:.3f}"
+            f" s); every column bitwise equal to devices=1 [{smi}]")
+    t0 = time.perf_counter()
+    cpu = sweep(2, "cpu")
+    cpu_s = time.perf_counter() - t0
+    err = columns_close(cpu, first, "closed_blocks the CPU's 2 blocks")
+    check(cpu.info["rounds"] == first.info["rounds"],
+          "closed_blocks: the CPU's blocks took other rounds")
+    try:
+        sweep(count + 1)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"closed_blocks: devices={count + 1} with "
+                             f"{count} GPU(s) did not raise ValueError")
+    log(f"closed_blocks: the CPU's 2 blocks in turn within {err:.3e} of "
+        f"the card's ({cpu_s:.3f} s), same rounds; devices={count + 1} "
+        f"raises ValueError ({refused})")
+
+
+# keys profile_maxplus returns for a CUDA device
+OBS_KEYS = {"compile_s", "traces", "argument_bytes", "output_bytes",
+            "build_s", "device_ms", "peak_bytes", "rows", "n"}
+
+
+def obs_phase(dev, smi: str, drive, scan_grid: tuple) -> None:
+    """``repro_torch.obs``: ``profile_maxplus`` for K1 and K2 at its
+    default (8, 4096) and at ``fig_scale``'s scan grid, every CUDA key
+    present and positive, each ``device_ms`` beside this script's own
+    ``device_ms`` of the kernel on the same inputs; one cold
+    ``profile_maxplus`` in a fresh process (its ``compile_s`` holds the
+    kernels' load, ``build_s``); the trace CLI on the committed sample."""
+    import os
+    import torch
+    from repro_torch.kernels.maxplus_scan import kernel as mp_kernel
+    from repro_torch.obs import profile_maxplus
+    from repro_torch.obs.profile import window
+
+    cases = [(b, rows, n) for b in ("cuda", "ref")
+             for rows, n in ((8, 4096), scan_grid)]
+    profs = drive("obs", ("maxplus_chunked", "maxplus_seq"), lambda: {
+        c: profile_maxplus(n=c[2], rows=c[1], backend=c[0], device=dev)
+        for c in cases})
+    for (backend, rows, n), p in profs.items():
+        check(set(p) == OBS_KEYS, f"obs {backend} ({rows}, {n}): keys "
+              f"{sorted(set(p) ^ OBS_KEYS)} differ")
+        check(all(p[k] > 0 for k in OBS_KEYS - {"build_s"})
+              and p["build_s"] >= 0,
+              f"obs {backend} ({rows}, {n}): a key not positive: {p}")
+        wrapper = (mp_kernel.maxplus_chunked if backend == "cuda"
+                   else mp_kernel.maxplus_seq)
+        a = torch.linspace(0.0, 1.0, rows * n, dtype=torch.float64,
+                           device=dev).reshape(rows, n)
+        s = torch.full((rows, n), 1e-4, dtype=torch.float64, device=dev)
+        own = device_ms(lambda: wrapper(a, s))
+        log(f"obs profile_maxplus backend={backend} ({wrapper.__name__}) "
+            f"({rows}, {n}) float64: device_ms {p['device_ms']:.4f} (this "
+            f"script's device_ms of the kernel on the same inputs "
+            f"{own:.4f}), first call {p['compile_s'] * 1e3:.3f} ms (build "
+            f"{p['build_s']:.3f} s), peak {p['peak_bytes'] / 1e6:.3f} MB, "
+            f"{p['argument_bytes'] / 1e6:.3f} MB in, "
+            f"{p['output_bytes'] / 1e6:.3f} MB out [{smi}]")
+    # where torch.profiler loses records: K2's records in each third of
+    # 5 timing windows of 3 x 20 calls
+    a = torch.linspace(0.0, 1.0, 8 * 4096, dtype=torch.float64,
+                       device=dev).reshape(8, 4096)
+    s = torch.full((8, 4096), 1e-4, dtype=torch.float64, device=dev)
+    thirds = [[sum(n for n, _ in t.values()) for t in window(
+        lambda: mp_kernel.maxplus_seq(a, s), 20)] for _ in range(5)]
+    log(f"obs: torch.profiler's maxplus_seq records in the thirds of 5 "
+        f"windows of 3 x 20 calls, {time.perf_counter() - STARTED:.0f} s "
+        f"into the process: {thirds}")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    code = ("import json; from repro_torch.obs import profile_maxplus; "
+            "print(json.dumps(profile_maxplus()))")
+    cold = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    check(cold.returncode == 0, f"obs cold profile_maxplus: {cold.stderr}")
+    p = json.loads(cold.stdout.strip().splitlines()[-1])
+    check(set(p) == OBS_KEYS and p["build_s"] > 0,
+          f"obs cold profile_maxplus in a fresh process: {p}")
+    log(f"obs profile_maxplus in a fresh process (K1, (8, 4096)): first "
+        f"call {p['compile_s']:.4f} s, of which the kernels' load "
+        f"{p['build_s']:.4f} s (built already); device_ms "
+        f"{p['device_ms']:.4f} [{smi}]")
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "summarize",
+         "benchmarks/sample_trace.json"], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    check(cli.returncode == 0, f"obs CLI: rc {cli.returncode}: "
+          f"{cli.stderr}")
+    log(f"obs: python -m repro_torch.obs summarize "
+        f"benchmarks/sample_trace.json rc 0, "
+        f"{len(cli.stdout.splitlines())} lines")
+
+
 def main() -> int:
     import torch
-    kernels_only = sys.argv[1:] == ["--kernels"]
-    if sys.argv[1:] and not kernels_only:
-        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+    mode = sys.argv[1:]
+    if mode not in ([], ["--kernels"], ["--closed-blocks"]):
+        print("usage: chip_smoke.py [--kernels | --closed-blocks]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2192,10 +2370,11 @@ def main() -> int:
     from repro_torch.sim.sweep import SweepPoint, run_sweep, sweep_grid
 
     t_start = time.perf_counter()
-    smi = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+        check=True, timeout=60).stdout.strip().splitlines()
+    smi = cards[0]
     dev = torch.device(DEVICE, 0)
     kind = torch.cuda.get_device_name(0)
     card = peaks(kind)
@@ -2211,17 +2390,6 @@ def main() -> int:
             if "registers" in ln or "spill" in ln:
                 log(f"  ptxas {src}: {ln.strip()}")
 
-    # ---------------------------------------------------- kernels alone
-    kernels = kernel_phase(card, dev)
-    kernels["ssd_chunked"] = ssd_kernel_phase(card, dev)
-    kernels["flash_fwd"] = flash_kernel_phase(card, dev)
-    kernels["flash_fwd"]["hd64_audio"] = flash_audio_phase(card, dev)
-    kernels["flash_fwd"]["gradient"] = flash_grad_phase(card, dev)
-    kernels["paged_decode"] = paged_kernel_phase(card, dev)
-    if kernels_only:
-        log(f"--kernels: the kernel phases only, no path driven; "
-            f"{time.perf_counter() - t_start:.1f} s")
-        return 0
     wrappers = {"maxplus_chunked": mp_kernel.maxplus_chunked,
                 "maxplus_seq": mp_kernel.maxplus_seq,
                 "ssd_chunked": ssm_scan_kernel, "flash_fwd": flash_fwd,
@@ -2242,6 +2410,26 @@ def main() -> int:
             check(wrappers[name].launches > 0,
                   f"{path}: {name} was never launched")
         return res
+
+    if mode == ["--closed-blocks"]:
+        closed_blocks_phase(dev, smi, drive)
+        log(f"--closed-blocks: that phase alone on "
+            f"{torch.cuda.device_count()} GPU(s) ({'; '.join(cards)}); "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+
+    # ---------------------------------------------------- kernels alone
+    kernels = kernel_phase(card, dev)
+    kernels["ssd_chunked"] = ssd_kernel_phase(card, dev)
+    kernels["flash_fwd"] = flash_kernel_phase(card, dev)
+    kernels["flash_fwd"]["hd64_audio"] = flash_audio_phase(card, dev)
+    kernels["flash_fwd"]["gradient"] = flash_grad_phase(card, dev)
+    kernels["paged_decode"] = paged_kernel_phase(card, dev)
+    if mode == ["--kernels"]:
+        log(f"--kernels: the kernel phases only, no path driven; "
+            f"{time.perf_counter() - t_start:.1f} s")
+        check_profiler_records()
+        return 0
 
     # ---------------------------------------------------- open loop
     # the card's run first, so it plans with cold host memos
@@ -2329,6 +2517,10 @@ def main() -> int:
             f"launch, bound {b_ms:.4f} ms ({b_by}), matches its plain "
             f"version; x {by_path[name][path]} launches = {share:.1%} of the "
             f"path's device time")
+
+    # --------------------------- closed loop in point blocks, and obs
+    closed_blocks_phase(dev, smi, drive)
+    obs_phase(dev, smi, drive, tuple(infos["fig_scale"]["grid"]))
 
     # ------------------------------------------ figures: the path's end
     # (check_figures holds each figure's own launches: maxplus_seq's too)
@@ -2606,6 +2798,7 @@ def main() -> int:
     for name, k in kernels.items():
         k["launches"] = sum(by_path[name].values())
         k["launches_by_path"] = by_path[name]
+    check_profiler_records()
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     print(json.dumps({"kernels": list(kernels.values())}))

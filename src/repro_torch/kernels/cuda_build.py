@@ -11,6 +11,10 @@ an edit rebuilds and an unchanged source loads at once.
 
 Every entry point of a source returns a CUDA error code, which
 :func:`launch` turns into an exception: nothing falls back.
+
+``BUILD_SECONDS`` sums the wall seconds of every :func:`build` that
+compiled or loaded a library, so a caller timing a first call can name
+the build's share of it (``repro_torch.obs.profile_compile``).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, NamedTuple, Sequence, Tuple
 
@@ -39,6 +44,7 @@ class Source(NamedTuple):
 
 SOURCES: Dict[str, Source] = {}
 BUILD_LOG: Dict[str, str] = {}   # source -> nvcc's output (ptxas -v)
+BUILD_SECONDS = 0.0  # wall s of the builds that compiled or loaded
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -73,6 +79,8 @@ def _target(name: str) -> Path:
 def build() -> Dict[str, ctypes.CDLL]:
     """Compile every registered source whose library is missing, all
     ``nvcc`` processes started together, and load every library."""
+    global BUILD_SECONDS
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in SOURCES.items():
@@ -92,6 +100,7 @@ def build() -> Dict[str, ctypes.CDLL]:
             os.replace(tmp, _target(name))
     if failed:
         raise RuntimeError("\n".join(failed))
+    loaded = 0
     for name, src in SOURCES.items():
         if name in _LIBS:
             continue
@@ -100,6 +109,9 @@ def build() -> Dict[str, ctypes.CDLL]:
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = restype
         _LIBS[name] = lib
+        loaded += 1
+    if loaded:
+        BUILD_SECONDS += time.perf_counter() - t0
     return _LIBS
 
 

@@ -394,9 +394,10 @@ def fig_scale(groups: int = 100, clients_per_group: int = 100,
     same scenario through the batched closed-loop fixed point
     (:func:`repro_torch.sim.sweep.run_sweep` on ``device``, its rounds on
     the ``maxplus_seq`` kernel), which is what pushes this figure to 1000
-    groups × 1000 threads = 1M simulated clients.  ``devices`` > 1 (the
-    point axis sharded over several GPUs) raises ``NotImplementedError``
-    in the port's sweep.
+    groups × 1000 threads = 1M simulated clients.  ``devices`` goes to
+    ``run_sweep`` (see its rule for visible devices); the one point
+    clamps to one block, and the row's engine reads ``sweep(x{devices})``
+    as the reference's does.
 
     This is the scenario the vectorized engines unlock — the generator
     oracle spends ~10 heap events per op across the generators, orders

@@ -148,8 +148,12 @@ class SweepResult:
     ``device_s`` (the device program, synchronized),
     ``grid`` (the (rows, slots) shape of its departure scan) and, for
     the closed loop, ``rounds`` (the fixed-point rounds run, the
-    converging round included).  A closed grid in the eviction regime
-    runs on the host: its ``grid`` and ``rounds`` are None."""
+    converging round included) and ``blocks`` (the point blocks, one a
+    device).  With several blocks, ``rounds`` is the largest count of
+    any block, ``device_s`` covers every block, synchronized, and
+    ``grid`` is the common (padded) shape.  A closed grid in the
+    eviction regime runs on the host: its ``grid``, ``rounds`` and
+    ``blocks`` are None."""
     points: List[SweepPoint]
     columns: Dict[str, np.ndarray]
     walltime_s: float = 0.0
@@ -348,15 +352,26 @@ def run_sweep(points: Iterable[SweepPoint], *, duration: float = 2.0,
     same fast-engine sim (closed-loop schedules are seeded by
     ``seed_offset``, so ``seed`` plays that role here; ``duration`` and
     ``p.rate`` are ignored).  The whole grid runs as one batched
-    fixed-point iteration (see the module docstring).  ``devices`` > 1
-    (sharding the point axis over several GPUs) is not supported yet.
-    ``max_rounds`` caps the fixed-point iteration (default: generous in
+    fixed-point iteration (see the module docstring).  ``max_rounds``
+    caps the fixed-point iteration (default: generous in
     ops-per-thread); non-convergence raises instead of returning wrong
     numbers.  Grids whose (config, group) rows can evict page-cache
     entries (distinct keys at one leader exceeding
     ``service.page_cache_keys``) take an equivalent host-side fixed
     point with the exact LRU replay
-    (:func:`~repro_torch.sim.vectorized.lru_hit_mask`).
+    (:func:`~repro_torch.sim.vectorized.lru_hit_mask`), whatever
+    ``devices`` says.
+
+    ``devices`` (closed loop only) deals the points round-robin into
+    ``D = min(devices, len(points))`` blocks, pads every block to the
+    common shape and iterates each to its own fixed point, bit-identical
+    to ``devices=1``.  The visible devices are ``device``'s kind: on
+    CUDA, ``torch.cuda.device_count()`` GPUs, block ``d`` running on its
+    own GPU, ``cuda:d`` (counted from ``device``'s index when it names
+    one), and ``devices`` past the visible GPUs raises ``ValueError``; no
+    two blocks share a GPU.  On ``device="cpu"`` any ``devices >= 1`` is
+    taken and the blocks run in turn on the host, as the reference's
+    tests reach several devices through XLA's forced host devices.
 
     ``device`` is where the program runs: ``None`` means the GPU, and
     raises when none is visible; ``"cpu"`` runs every kernel's plain
@@ -784,41 +799,80 @@ def _closed_round(comp: torch.Tensor, flat: Dict[str, torch.Tensor],
     return new
 
 
-def _closed_fixed_point(flat: Dict[str, torch.Tensor],
-                        aux: Dict[str, torch.Tensor], *, max_hops: int,
-                        scan_backend: str, max_rounds: int, seek: float,
-                        R: int, Ls: int):
-    """Iterate rounds to the fixed point on one device block.
+def _closed_fixed_point(blocks: Sequence[Tuple[Dict[str, torch.Tensor],
+                                               Dict[str, torch.Tensor]]],
+                        *, max_hops: int, scan_backend: str,
+                        max_rounds: int, seek: float, R: int, Ls: int
+                        ) -> List[tuple]:
+    """Iterate rounds to the fixed point on every device block.
 
-    Returns ``(comp, t0, done, rounds, pieces)``: completions, start
-    times, whether a round changed nothing within ``max_rounds``, the
-    rounds run, and the span pieces ``(b_request, b_route, arrival,
+    The blocks step in lockstep, each stopping at its own fixed point:
+    a round of every unfinished block is queued before any block's
+    "nothing changed" test waits on its device, so blocks on different
+    GPUs overlap.  Past a block's fixed point its round map is
+    idempotent, so stopping a block early or late changes no bit.
+
+    Returns per block ``(comp, t0, done, rounds, pieces)``: completions,
+    start times, whether a round changed nothing within ``max_rounds``,
+    the rounds run, and the span pieces ``(b_request, b_route, arrival,
     start, departure, b_replicate)`` stacked (6, n).
     """
-    n = flat["c_req"].shape[0]
-    dev = flat["c_req"].device
-    # static scatter geometry: positions whose slot lies in the grid
-    dest = aux["dest"].long()
-    keep = torch.nonzero(dest < R * Ls).squeeze(1)
-    aux = dict(aux, keep=keep, slot=dest[keep])
     kw = dict(max_hops=max_hops, scan_backend=scan_backend, seek=seek,
               R=R, Ls=Ls)
-    comp = torch.full((n,), torch.inf, dtype=torch.float64, device=dev)
-    done, rounds = False, 0
-    # lax.while_loop becomes a host loop: one device sync per round to
-    # test "nothing changed", the same test the reference program makes
-    while not done and rounds < max_rounds:
-        new = _closed_round(comp, flat, aux, **kw)
-        done = torch.equal(new, comp)
-        comp = new
-        rounds += 1
-    t0 = torch.where(flat["first"],
-                     torch.zeros((), dtype=torch.float64, device=dev),
-                     comp[flat["pred"].long().clamp(0, n - 1)])
-    # one idempotent replay of the converged round keeps the span pieces
-    pieces: list = []
-    _closed_round(comp, flat, aux, pieces=pieces, **kw)
-    return comp, t0, done, rounds, torch.stack(pieces)
+    auxs, comps = [], []
+    for flat, aux in blocks:
+        # static scatter geometry: positions whose slot lies in the grid
+        dest = aux["dest"].long()
+        keep = torch.nonzero(dest < R * Ls).squeeze(1)
+        auxs.append(dict(aux, keep=keep, slot=dest[keep]))
+        comps.append(torch.full(flat["c_req"].shape, torch.inf,
+                                dtype=torch.float64,
+                                device=flat["c_req"].device))
+    done = [False] * len(blocks)
+    rounds = [0] * len(blocks)
+    live = list(range(len(blocks)))
+    # lax.while_loop becomes a host loop: one device sync per block and
+    # round to test "nothing changed", the test the reference program makes
+    while live:
+        new = {d: _closed_round(comps[d], blocks[d][0], auxs[d], **kw)
+               for d in live}
+        for d in live:
+            done[d] = torch.equal(new[d], comps[d])
+            comps[d] = new[d]
+            rounds[d] += 1
+        live = [d for d in live if not done[d] and rounds[d] < max_rounds]
+    out = []
+    for (flat, _), aux, comp, ok, r in zip(blocks, auxs, comps, done,
+                                           rounds):
+        n = comp.shape[0]
+        t0 = torch.where(flat["first"],
+                         torch.zeros((), dtype=torch.float64,
+                                     device=comp.device),
+                         comp[flat["pred"].long().clamp(0, n - 1)])
+        # one idempotent replay of the converged round keeps the pieces
+        pieces: list = []
+        _closed_round(comp, flat, aux, pieces=pieces, **kw)
+        out.append((comp, t0, ok, r, torch.stack(pieces)))
+    return out
+
+
+def _block_devices(device: torch.device, devices: int, D: int
+                   ) -> List[torch.device]:
+    """Where each of the ``D`` point blocks runs.  On the CPU every block
+    runs on the host, in turn.  On CUDA block ``d`` runs on its own GPU,
+    ``cuda:i+d``, ``i`` being ``device``'s index (the current device
+    when it names none); ``devices`` GPUs from ``cuda:i`` on must be
+    visible, or this raises ``ValueError``."""
+    if device.type != "cuda":
+        return [device] * D
+    count = torch.cuda.device_count()
+    first = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    if first + devices > count:
+        raise ValueError(
+            f"devices={devices} from cuda:{first} but only {count} CUDA "
+            "devices visible; each point block runs on its own GPU")
+    return [torch.device("cuda", first + d) for d in range(D)]
 
 
 def _closed_rounds_host(built: Sequence[dict], capacity: int, seek: float,
@@ -895,10 +949,6 @@ def _run_closed(points: List[SweepPoint], *, setting: str, seed: int,
                 devices: int, max_rounds: Optional[int],
                 device: torch.device) -> SweepResult:
     t_wall = walltime()
-    if devices > 1:
-        raise NotImplementedError(
-            "devices > 1 (the point axis sharded over several GPUs) is not "
-            "supported yet; run with devices=1")
     for p in points:
         if p.threads < 1 or p.ops < 1:
             raise ValueError(
@@ -917,36 +967,51 @@ def _run_closed(points: List[SweepPoint], *, setting: str, seed: int,
         max_rounds = 4 * max(b["per_thread"] for b in built) + 64
     seek = float(dm.seek)
     info: Dict[str, object] = dict(device=str(device), device_s=0.0,
-                                   rounds=None, grid=None)
+                                   rounds=None, grid=None, blocks=None)
 
     if any(b["evict"] for b in built):
         info["plan_s"] = walltime() - t_wall
         comp_pt, t0_pt, pieces_pt = _closed_rounds_host(
             built, capacity, seek, max_hops, max_rounds)
     else:
-        blk = _closed_assemble(built)
-        R = len(blk["rows"])
-        Ls = max(len(m) for m in blk["rows"])
-        flat, aux = _closed_pad(blk, blk["n"], R, Ls)
+        # deal the points round-robin into D blocks, one a device, each
+        # padded to the common (n, R, Ls) as the reference pads its
+        # shards; D = 1 is one block with no padding
+        D = min(devices, len(points))
+        block_devs = _block_devices(device, devices, D)
+        idxs = [range(d, len(points), D) for d in range(D)]
+        blks = [_closed_assemble([built[pi] for pi in ix]) for ix in idxs]
+        n_max = max(b["n"] for b in blks)
+        R_max = max(len(b["rows"]) for b in blks)
+        Ls_max = max(len(m) for b in blks for m in b["rows"])
+        padded = [_closed_pad(b, n_max, R_max, Ls_max) for b in blks]
         t_dev = walltime()
         info["plan_s"] = t_dev - t_wall
-        comp, t0f, done, rounds, pieces = _closed_fixed_point(
-            to_device(flat, device), to_device(aux, device),
+        outs = _closed_fixed_point(
+            [(to_device(f, dv), to_device(a, dv))
+             for (f, a), dv in zip(padded, block_devs)],
             max_hops=max_hops, scan_backend=scan_backend,
-            max_rounds=int(max_rounds), seek=seek, R=R, Ls=Ls)
-        comp, t0f, pieces = _host(comp), _host(t0f), _host(pieces)
-        info.update(device_s=walltime() - t_dev, rounds=rounds,
-                    grid=(R, Ls))
-        if not done:
+            max_rounds=int(max_rounds), seek=seek, R=R_max, Ls=Ls_max)
+        outs = [(_host(c), _host(t), ok, r, _host(pc))
+                for c, t, ok, r, pc in outs]
+        info.update(device_s=walltime() - t_dev,
+                    rounds=max(o[3] for o in outs), grid=(R_max, Ls_max),
+                    blocks=D)
+        if not all(o[2] for o in outs):
             raise RuntimeError(
                 f"closed-loop sweep did not converge in {max_rounds} "
                 "rounds; raise max_rounds")
-        comp_pt, t0_pt, pieces_pt, off = [], [], [], 0
-        for b in built:
-            comp_pt.append(comp[off:off + b["n"]])
-            t0_pt.append(t0f[off:off + b["n"]])
-            pieces_pt.append(pieces[:, off:off + b["n"]])
-            off += b["n"]
+        comp_pt = [np.empty(0)] * len(points)
+        t0_pt = [np.empty(0)] * len(points)
+        pieces_pt = [np.empty((6, 0))] * len(points)
+        for ix, (comp, t0f, _, _, pieces) in zip(idxs, outs):
+            off = 0
+            for pi in ix:
+                n = built[pi]["n"]
+                comp_pt[pi] = comp[off:off + n]
+                t0_pt[pi] = t0f[off:off + n]
+                pieces_pt[pi] = pieces[:, off:off + n]
+                off += n
 
     # ---- fold into per-point RecordArray-style aggregates ----
     N = len(points)

@@ -154,9 +154,17 @@ def test_sweep_figures_default_to_the_gpu(name, kw):
 
 
 def test_fig_scale_sweep_devices_not_supported():
-    with pytest.raises(NotImplementedError):
-        port.fig_scale(groups=3, clients_per_group=4, ops_per_client=16,
-                       engine="sweep", devices=2, device="cpu")
+    """``devices`` > 1 keeps the reference's label; the one point clamps
+    to one block and gives the same row as ``devices=1``."""
+    kw = dict(groups=3, clients_per_group=4, ops_per_client=16,
+              engine="sweep", device="cpu")
+    (one,) = port.fig_scale(**kw)
+    (two,) = port.fig_scale(devices=2, **kw)
+    assert two["engine"] == "sweep(x2)" and one["engine"] == "sweep"
+    assert {k: v for k, v in two.items() if k not in ("engine",
+                                                      "walltime_s")} \
+        == {k: v for k, v in one.items() if k not in ("engine",
+                                                      "walltime_s")}
 
 
 def _public(mod):

@@ -31,7 +31,8 @@ from repro_torch.kernels.ssm_scan import (ssd_chunked_ref, ssd_ref, ssm_scan,
 from repro_torch.launch.serve import serve
 from repro_torch.models import attention as tattn
 from repro_torch.models import init_params
-from repro_torch.sim.sweep import closed_grid, run_sweep, sweep_grid
+from repro_torch.sim.sweep import (SweepPoint, closed_grid, run_sweep,
+                                   sweep_grid)
 
 pytestmark = pytest.mark.cuda
 
@@ -149,6 +150,52 @@ def test_sweep_on_gpu_matches_cpu(cuda_device):
     _assert_columns_match(got, want, 0.0)
     assert got.info["rounds"] == want.info["rounds"]
     assert [asdict(p) for p in got.points] == [asdict(p) for p in pts]
+
+
+def test_blocked_sweep_on_every_gpu_bitwise(cuda_device):
+    """The closed grid dealt over every visible GPU (one block each)
+    bitwise equal to one block, and to the CPU's blocks; one more device
+    than visible raises."""
+    count = torch.cuda.device_count()
+    pts = closed_grid(threads=4, ops=32)[:5] + [
+        SweepPoint(p_global=0.5, groups=4, threads=6, ops=48)]
+    one = run_sweep(pts, loop="closed", devices=1, device=cuda_device)
+    many = run_sweep(pts, loop="closed", devices=count, device=cuda_device)
+    cpu = run_sweep(pts, loop="closed", devices=count, device="cpu")
+    assert many.info["blocks"] == min(count, len(pts))
+    for res in (many, cpu):
+        for k, w in one.columns.items():
+            assert np.array_equal(res.columns[k], w, equal_nan=True), k
+    with pytest.raises(ValueError, match="CUDA devices visible"):
+        run_sweep(pts, loop="closed", devices=count + 1, device=cuda_device)
+
+
+@pytest.mark.parametrize("backend,wrapper", [("cuda", "maxplus_chunked"),
+                                             ("ref", "maxplus_seq")])
+def test_profile_maxplus_on_gpu(cuda_device, backend, wrapper):
+    from repro_torch.obs import profile_maxplus
+    kernel = getattr(mp_kernel, wrapper)
+    before = kernel.launches
+    out = profile_maxplus(n=4096, rows=8, backend=backend)
+    assert set(out) == {"compile_s", "traces", "argument_bytes",
+                        "output_bytes", "build_s", "device_ms",
+                        "peak_bytes", "rows", "n"}
+    assert out["device_ms"] > 0 and out["peak_bytes"] > 0
+    assert out["compile_s"] > 0 and out["build_s"] >= 0
+    assert out["argument_bytes"] == 2 * 8 * 4096 * 8
+    assert out["output_bytes"] == 8 * 4096 * 8
+    assert kernel.launches > before
+
+
+def test_kernel_records_counts_every_launch(cuda_device):
+    from repro_torch.obs.profile import irregular, kernel_records
+    a = torch.linspace(0.0, 1.0, 8 * 4096, dtype=torch.float64,
+                       device=cuda_device).reshape(8, 4096)
+    s = torch.full((8, 4096), 1e-4, dtype=torch.float64, device=cuda_device)
+    per = kernel_records(lambda: mp_kernel.maxplus_seq(a, s), calls=20)
+    assert sum(n for n, _ in per.values()) == 20
+    assert not irregular(per, 20)
+    assert all(us > 0 for _, us in per.values())
 
 
 def ssd_inputs(BH, S, P, N, seed, decay=None):

@@ -64,8 +64,8 @@ def test_closed_rounds_bitwise_on_reference_inputs(max_rounds):
         want = jax.device_get(jax.jit(run)(
             {k: jnp.asarray(v) for k, v in flat.items()},
             {k: jnp.asarray(v) for k, v in aux.items()}))
-    got = sweep._closed_fixed_point(
-        sweep.to_device(flat, "cpu"), sweep.to_device(aux, "cpu"),
+    (got,) = sweep._closed_fixed_point(
+        [(sweep.to_device(flat, "cpu"), sweep.to_device(aux, "cpu"))],
         scan_backend="seq", max_rounds=max_rounds, **g)
     w_comp, w_t0, w_done, w_rounds, w_pieces = want
     comp, t0, done, rounds, pieces = got
@@ -120,8 +120,17 @@ def test_closed_sweep_nonconvergence_and_devices_raise():
     p = sweep.SweepPoint(p_global=0.5, groups=3, threads=4, ops=40)
     with pytest.raises(RuntimeError):
         sweep.run_sweep([p], loop="closed", max_rounds=1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sweep.run_sweep([p], loop="closed", devices=2, device="cpu")
+    # the CPU takes any devices >= 1 (blocks in turn on the host); the
+    # open loop and devices < 1 raise, as in the reference
+    one = sweep.run_sweep([p], loop="closed", device="cpu")
+    two = sweep.run_sweep([p], loop="closed", devices=2, device="cpu")
+    assert two.info["blocks"] == 1
+    for k, v in one.columns.items():
+        assert np.array_equal(v, two.columns[k], equal_nan=True), k
+    with pytest.raises(ValueError, match="loop='closed'"):
+        sweep.run_sweep([p], devices=2, device="cpu")
+    with pytest.raises(ValueError):
+        sweep.run_sweep([p], loop="closed", devices=0, device="cpu")
     with pytest.raises(ValueError):
         sweep.run_sweep([p], scan_backend="pallas", device="cpu")
 
