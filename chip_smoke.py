@@ -136,6 +136,11 @@ float32 version's error, forward and backward timed):
   to 10 through the EdgeKV ``QuorumCheckpointer``: every loss bitwise
   equal.
 
+Before the paths, ``analysis``: the port's static-analysis suite,
+``python -m repro_torch.analysis src/repro_torch --json`` in a fresh
+interpreter on the card's host, every rule over every file of the port;
+a finding or a non-zero exit fails the run.
+
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path and read just after, and a path that never launched its
 kernel fails.  The second-to-last line is a JSON object with each
@@ -2344,6 +2349,29 @@ def obs_phase(dev, smi: str, drive, scan_grid: tuple) -> None:
         f"{len(cli.stdout.splitlines())} lines")
 
 
+def analysis_phase() -> None:
+    """``repro_torch.analysis`` over ``src/repro_torch`` in a fresh
+    interpreter: exit 0 and no finding, or the run fails."""
+    import os
+    from repro_torch.analysis import RULES, iter_py_files
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "src/repro_torch",
+         "--json"], env=env, cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"analysis: rc {proc.returncode}: "
+          f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    findings = json.loads(proc.stdout)
+    check(findings == [], f"analysis: findings {findings}")
+    files = sum(1 for _ in iter_py_files([SRC / "repro_torch"]))
+    log(f"analysis: python -m repro_torch.analysis src/repro_torch: "
+        f"{len(RULES)} rules, {files} files, {len(findings)} findings, "
+        f"{seconds:.3f} s")
+
+
 def main() -> int:
     import torch
     mode = sys.argv[1:]
@@ -2430,6 +2458,8 @@ def main() -> int:
             f"{time.perf_counter() - t_start:.1f} s")
         check_profiler_records()
         return 0
+
+    analysis_phase()
 
     # ---------------------------------------------------- open loop
     # the card's run first, so it plans with cold host memos
