@@ -17,7 +17,11 @@ query heads of 128 over 8 KV heads, also under a binding window, and
 seamless-m4t-large-v2's five calls at 16 heads of 64: encoder
 self-attention, decoder self-attention, cross-attention in prefill, and
 the decoder's two decode calls, with a partial-tile cross-attention and
-a cross decode over 1003 frames checked too), paged decode attention at stablelm-3b's decode and mixtral-8x7b's GQA shape
+a cross decode over 1003 frames checked too; and the decode
+configuration's int8 instance over an int8 cache of ``_quant_kv`` codes
+and scales at stablelm-3b's, mixtral-8x7b's and seamless's decoder
+shapes, beside its byte bound, the float instance over the dequantized
+copy and dequantize + SDPA), paged decode attention at stablelm-3b's decode and mixtral-8x7b's GQA shape
 (timed; also against flash attention over the same tokens held
 contiguously), granite-20b's MQA shape and pages of 16 and 12 tokens.
 Then it drives the port's main paths through their entry points.  The
@@ -101,6 +105,20 @@ The LLM serving path, ``repro_torch.launch.serve.serve``:
   shared prefix stored once), and the paged kernel's 32 launches (one a
   layer) each held against its plain version and flash attention over
   the contiguous copy;
+* ``serve_int8_stablelm``: the same full-width stablelm-3b and prompts
+  decoding through an int8 KV cache of 1056 slots (codes and float32
+  scales, 1.45 GB against the float cache's 5.54 GB), the prompts'
+  K/V filled from the float prefill by ``_quant_kv`` (the harness's
+  fill, not a package feature), 31 steps teacher-forced on
+  ``serve_stablelm``'s tokens: 32 K4 launches a step, every one the
+  int8 instance under torch.profiler, logits within 2% (the
+  reference's int8 contract) of ``serve_stablelm``'s float-cache
+  logits; decode ms a step, peak memory and K4's share of a warm step;
+* ``int8_vs_cpu``: stablelm-3b at full width cut to 2 layers, 8
+  requests, 48 teacher-forced steps from an empty int8 cache on the
+  card against a CPU run handed the card's model (within 2%), and the
+  48th step from the card's cache after the 47th on both: logits
+  within ``LOGIT_TOL``, the new slot's codes within 1;
 * for each model, the card's serve run against a CPU run handed the
   card's weights, teacher-forced with the card's tokens, logits within
   ``LOGIT_TOL``: xlstm-125m whole at 2 requests x 256 tokens,
@@ -241,6 +259,13 @@ SERVE_MOE_VS_CPU = dict(SERVE_DENSE_VS_CPU, arch="mixtral-8x7b")
 # of 256 prompt tokens and 256 frames
 SERVE_AUDIO_VS_CPU = dict(SERVE_DENSE_VS_CPU, arch="seamless-m4t-large-v2",
                           enc_layers=2, prompt_len=256, shared_prefix_len=64)
+# int8_vs_cpu: stablelm-3b at full width cut to 2 layers, 8 requests, 48
+# teacher-forced decode steps from an empty int8 cache of 64 slots
+INT8_VS_CPU = dict(arch="stablelm-3b", layers=2, requests=8, steps=48,
+                   max_len=64, seed=0)
+# tests/test_serving_features.py's contract: int8 logits within 2% of a
+# reference (relative to its largest)
+INT8_RTOL = 0.02
 # the keys of a serve spec that cut the model's depth rather than go to
 # serve
 DEPTH = ("layers", "enc_layers")
@@ -847,15 +872,18 @@ def ssd_kernel_phase(card: dict, dev) -> dict:
 
 
 def flash_work(B: int, Sq: int, H: int, K: int, hd: int, kv_len: int,
-               causal: bool) -> tuple:
+               causal: bool, int8: bool = False) -> tuple:
     """(bytes, operations) one attention call needs: q read and o written
-    once, the valid K and V (keys below ``kv_len``) read once, and two
-    operations a multiply-add for q k^T and p v over the visible (query,
-    key) pairs only (the causal triangle when causal)."""
+    once (float32), the valid K and V rows (keys below ``kv_len``) read
+    once, 4 hd bytes a row, or hd + 4 when ``int8`` (the codes and a
+    float32 scale), and two operations a multiply-add for q k^T and p v
+    over the visible (query, key) pairs only (the causal triangle when
+    causal)."""
     pairs = (sum(min(i + 1, kv_len) for i in range(Sq)) if causal
              else Sq * kv_len)
-    floats = 2 * B * Sq * H * hd + 2 * B * kv_len * K * hd
-    return 4 * floats, 4 * B * H * pairs * hd
+    row = hd + 4 if int8 else 4 * hd
+    return (8 * B * Sq * H * hd + 2 * B * kv_len * K * row,
+            4 * B * H * pairs * hd)
 
 
 def sdpa_ms(q, k, v, kv_len: int, causal: bool) -> tuple:
@@ -1013,6 +1041,108 @@ def flash_kernel_phase(card: dict, dev) -> dict:
         hd64={"prefill": out[64, "prefill"], "decode": out[64, decode]},
         hd128_gqa={"prefill": out[128, "prefill"],
                    "decode": out[128, decode]})
+
+
+# the int8 decode instance at the int8 serve cache's shapes, 8 requests
+# over 1056 slots: (case, query heads, KV heads, head width, device
+# kv_len, timed)
+INT8_FLASH = (("stablelm-3b", 32, 32, 80, 1025, True),
+              ("stablelm-3b kv_len 1055", 32, 32, 80, 1055, True),
+              ("mixtral-8x7b", 32, 8, 128, 1025, True),
+              ("seamless decoder self", 16, 16, 64, 1025, True))
+
+
+def flash_int8_phase(card: dict, dev) -> dict:
+    """K4's int8 decode instance (``flash_fwd`` with ``kv_scales``) at
+    ``INT8_FLASH``'s shapes: one query a sequence over an int8 cache of
+    1056 slots, the K/V ``_quant_kv`` of seeded float values, held to the
+    plain version (which dequantizes first) within ``FLASH_TOL``; timed
+    (device time) beside its byte bound, the plain version, the float32
+    decode instance over the dequantized copy, and a yardstick of two
+    torch calls, dequantize then scaled_dot_product_attention (no one
+    torch call reads int8 K/V with scales: library_ms is None)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_chunked_ref, flash_fwd)
+    from repro_torch.models.attention import _quant_kv
+    B, S_max = 8, 1056
+    gen = torch.Generator(dev).manual_seed(35)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def fold(t, reps=1):          # (B, S, n, w) -> (B * n * reps, S, w)
+        if reps > 1:
+            t = t.repeat_interleave(reps, dim=2)
+        return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[-1])
+
+    out = {}
+    for case, H, K, hd, n, timed in INT8_FLASH:
+        G = H // K
+        q = randn(B, 1, H, hd)
+        (k8, ks), (v8, vs) = _quant_kv(randn(B, S_max, K, hd)), _quant_kv(
+            randn(B, S_max, K, hd))
+        n_dev = torch.tensor(n, dtype=torch.int32, device=dev)
+
+        def run():
+            return flash_fwd(q, k8, v8, causal=False, kv_len=n_dev,
+                             kv_scales=(ks, vs))
+
+        got = fold(run())
+        check(bool(torch.isfinite(got).all()),
+              f"flash int8 {case}: not finite")
+        folded = [fold(q), fold(k8, G), fold(v8, G)]
+        kw = dict(causal=False, seq_k=n_dev,
+                  kv_scales=(fold(ks, G), fold(vs, G)))
+        want = flash_attention_chunked_ref(*folded, **kw)
+        err = float((got - want).abs().max())
+        bound = FLASH_TOL * max(1.0, float(want.abs().max()))
+        check(err <= bound, f"flash int8 {case}: max_abs_err vs plain {err} "
+              f"> {bound}")
+        kd, vd = k8.float() * ks, v8.float() * vs    # the dequantized copy
+        f_err = float((fold(flash_fwd(q, kd, vd, causal=False, kv_len=n_dev))
+                       - got).abs().max())
+        check(f_err <= bound, f"flash int8 {case}: {f_err} from the float "
+              f"instance over the dequantized copy")
+        del want, got
+        shape = (f"(B {B}, Sq 1, Skv {S_max}, H {H}, K {K}, hd {hd}, device "
+                 f"kv_len {n})")
+        nbytes, ops = flash_work(B, 1, H, K, hd, n, False, int8=True)
+        b_ms, b_by = bound_ms(card, nbytes, ops, torch.float32)
+        ms, call_ms = device_ms(run), time_ms(run)
+        plain_ms = time_ms(lambda: flash_attention_chunked_ref(*folded, **kw),
+                           reps=1, windows=3)
+        float_ms = device_ms(lambda: flash_fwd(q, kd, vd, causal=False,
+                                               kv_len=n_dev))
+        qt = q.transpose(1, 2)
+
+        def yardstick():
+            kt, vt = ((c[:, :n].float() * sc[:, :n]).transpose(1, 2)
+                      for c, sc in ((k8, ks), (v8, vs)))
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                   enable_gqa=G > 1)
+
+        yard_ms = device_ms(yardstick)
+        del kd, vd
+        log(f"flash_fwd int8 decode {case} {shape}: max_abs_err vs plain "
+            f"{err:.3e} (tol {FLASH_TOL} x max(1, |plain|)), vs the float "
+            f"instance over the dequantized copy {f_err:.3e}; {ms:.4f} ms on "
+            f"the device (back-to-back calls {call_ms:.4f} ms), bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
+            f"GFLOP; {nbytes / ms / 1e9:.3f} TB/s achieved, "
+            f"{b_ms / ms:.1%} of the bound), plain {plain_ms:.3f} ms, float32 "
+            f"decode instance over the dequantized copy {float_ms:.4f} ms "
+            f"(int8 / float {ms / float_ms:.3f}), yardstick of two torch "
+            f"calls (dequantize K and V to float32, then "
+            f"scaled_dot_product_attention{', enable_gqa' if G > 1 else ''})"
+            f" {yard_ms:.4f} ms; library none (no one torch call reads int8 "
+            f"K/V with scales)")
+        out[case] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         library_ms=None, float_ms=float_ms,
+                         yardstick_ms=yard_ms, launches=0)
+    return out
 
 
 # the audio path's attention calls for 8 requests of seamless-m4t-large-v2
@@ -1663,17 +1793,18 @@ def paged_stablelm(dev, spec: dict) -> dict:
 
 
 # kernel name fragment -> the kind the time splits report it under
-KERNEL_KINDS = (("flash_", "flash_fwd"), ("ssd_", "ssd_chunked"),
-                ("maxplus_chunked", "maxplus_chunked"),
-                ("maxplus_seq", "maxplus_seq"),
-                ("gemm", "products"), ("xmma", "products"))
+# kernel name fragments (all in the demangled name) -> the kind the time
+# splits report it under; K4's int8 instance is its decode kernel over
+# signed char K/V
+KERNEL_KINDS = ((("flash_", "signed char"), "flash_fwd int8"),
+                (("flash_",), "flash_fwd"), (("ssd_",), "ssd_chunked"),
+                (("maxplus_chunked",), "maxplus_chunked"),
+                (("maxplus_seq",), "maxplus_seq"),
+                (("gemm",), "products"), (("xmma",), "products"))
 
 
-def device_busy(fn) -> tuple:
-    """(device busy ms, kernels, busy ms by kind, kernels by kind) of one
-    call of ``fn`` under torch.profiler: the summed durations of the CUDA
-    kernels it ran (one stream, so they do not overlap); (None, 0, {},
-    {}) if the profiler saw no device activity."""
+def cuda_events(fn) -> list:
+    """The CUDA kernels one call of ``fn`` ran, from torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1681,14 +1812,22 @@ def device_busy(fn) -> tuple:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_busy(fn) -> tuple:
+    """(device busy ms, kernels, busy ms by kind, kernels by kind) of one
+    call of ``fn`` under torch.profiler: the summed durations of the CUDA
+    kernels it ran (one stream, so they do not overlap); (None, 0, {},
+    {}) if the profiler saw no device activity."""
+    kern = cuda_events(fn)
     if not kern:
         return None, 0, {}, {}
     kinds: dict = {}
     counts: dict = {}
     for e in kern:
-        kind = next((k for frag, k in KERNEL_KINDS
-                     if frag in e.name.lower()), "other")
+        kind = next((k for frags, k in KERNEL_KINDS
+                     if all(f in e.name.lower() for f in frags)), "other")
         kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
         counts[kind] = counts.get(kind, 0) + 1
     return sum(kinds.values()), len(kern), kinds, counts
@@ -2099,6 +2238,233 @@ def serve_vs_cpu(dev, spec: dict) -> None:
         f"bound{routing}")
 
 
+def int8_fill(params, cfg, prompts, max_len: int):
+    """An int8 cache of ``max_len`` slots holding the prompts' K/V: the
+    float prefill's K/V quantized by the port's ``_quant_kv``, which is
+    what a decode step writes for those K/V.  The fill is this script's,
+    not a feature of the package (the reference's prefill builds a float
+    cache; its int8 cache is reached by init_cache and decode_step).
+    Returns (the prefill's last logits, the int8 cache, the float
+    cache)."""
+    import torch
+    from repro_torch.models import init_cache, prefill
+    from repro_torch.models.attention import _quant_kv
+    B, S = prompts.shape
+    logits, fcache = prefill(params, cfg, prompts, max_len=max_len)
+    last = logits[:, -1, :cfg.vocab_size].clone()
+    del logits
+    cache = init_cache(params, cfg, B, max_len, kv_dtype="int8")
+    for n in ("k", "v"):
+        for layer in range(cfg.n_layers):
+            codes, scales = _quant_kv(fcache[n][layer, :, :S])
+            cache[n][layer, :, :S] = codes
+            cache[n + "s"][layer, :, :S] = scales
+    cache["len"].fill_(S)
+    torch.cuda.synchronize()
+    return last, cache, fcache
+
+
+def cache_bytes(cache: dict, keys=("k", "v", "ks", "vs")) -> int:
+    return sum(cache[n].numel() * cache[n].element_size() for n in keys)
+
+
+def serve_int8_stablelm(dev, spec: dict, served: dict) -> dict:
+    """``spec``'s stablelm-3b at full width and depth (the weights serve
+    draws from the seed) decoding through an int8 cache of prompt_len +
+    gen_len slots, teacher-forced on ``served``'s tokens (the float serve
+    run of the same model and prompts): the prompts' K/V filled by
+    ``int8_fill`` (the harness's, not the package's), then gen_len - 1
+    decode steps, each held to 32 K4 launches, their logits within the
+    reference's 2% (relative to the largest) of ``served``'s float-cache
+    logits at the same steps.  Before the path, outside its launch
+    count: the fill, and the same steps over the float prefill's cache
+    timed as the int8 steps are (a step's wall, synchronized), the
+    float cache then freed.  Returns the int8 decode loop (``drive``
+    it) and its report."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_fwd
+    from repro_torch.launch.serve import page_requests
+    from repro_torch.models import decode_step, init_params
+    cfg = get_config(spec["arch"])
+    B, S, G = spec["requests"], spec["prompt_len"], spec["gen_len"]
+    params = init_params(cfg, spec["seed"], device=dev)
+    prompts, _ = page_requests(
+        cfg.vocab_size, requests=B, prompt_len=S, gen_len=G,
+        shared_prefix_len=spec["shared_prefix_len"], page_size=8,
+        seed=np.random.default_rng(spec["seed"]))
+    t0 = time.perf_counter()
+    last, cache, fcache = int8_fill(
+        params, cfg, torch.as_tensor(prompts, device=dev).long(), S + G)
+    fill_s = time.perf_counter() - t0
+    pre_err = float(np.max(np.abs(last.cpu().numpy()
+                                  - served["logits"][:, 0])))
+    forced = torch.as_tensor(served["tokens"], device=dev)
+
+    def steps(state: dict) -> dict:
+        """gen_len - 1 teacher-forced steps from ``state["cache"]`` (a
+        step's cache dict is new: its "len"), each synchronized and
+        timed."""
+        logits, step_s, per_step = [], [], []
+        for t in range(1, G):
+            n0 = flash_fwd.launches
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg, state["cache"] = decode_step(params, cfg, state["cache"],
+                                             forced[:, t - 1:t])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            per_step.append(flash_fwd.launches - n0)
+            logits.append(lg[:, :cfg.vocab_size].cpu().numpy())
+        return dict(logits=np.stack(logits, 1), step_s=step_s,
+                    per_step=per_step)
+
+    float_bytes = cache_bytes(fcache, ("k", "v"))
+    float_run = steps({"cache": fcache})
+    del fcache
+    torch.cuda.empty_cache()
+    state = {"cache": cache}
+
+    def decode():
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = steps(state)
+        res["peak"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        return res
+
+    def report(res: dict) -> dict:
+        L = cfg.n_layers
+        check(all(n == L for n in res["per_step"]),
+              f"serve_int8_stablelm: K4 launches a step {res['per_step']}, "
+              f"expected {L}")
+        lq, lf = res["logits"], served["logits"][:, 1:]
+        check(bool(np.isfinite(lq).all()), "serve_int8_stablelm: logits "
+              "not finite")
+        rel = float(np.max(np.abs(lq - lf)) / (np.max(np.abs(lf)) + 1e-9))
+        check(rel < INT8_RTOL, f"serve_int8_stablelm: int8 logits {rel:.4%} "
+              f"of the float cache's largest, contract {INT8_RTOL:.0%}")
+        agree = float(np.mean(lq.argmax(-1) == lf.argmax(-1)))
+        own = float(np.max(np.abs(float_run["logits"] - lf)))
+        # a warm step (the cache's last slot) under torch.profiler
+        check(int(state["cache"]["len"]) == S + G - 1,
+              f"serve_int8_stablelm: cache length "
+              f"{int(state['cache']['len'])}")
+        busy, n_all, kinds, counts = device_busy(
+            lambda: decode_step(params, cfg, state["cache"],
+                                forced[:, G - 1:G]))
+        check(busy is not None, "serve_int8_stablelm: torch.profiler saw no "
+              "device time in a step")
+        n_int8 = counts.get("flash_fwd int8", 0)
+        n_k4 = n_int8 + counts.get("flash_fwd", 0)
+        k4_ms = kinds.get("flash_fwd int8", 0.0) + kinds.get("flash_fwd", 0.0)
+        check(n_k4 == L and n_int8 == L, f"serve_int8_stablelm: a profiled "
+              f"step ran {n_k4} K4 kernels, {n_int8} of them the int8 "
+              f"instance; expected {L}")
+        i8 = cache_bytes(cache)
+        step_ms = statistics.median(res["step_s"]) * 1e3
+        float_ms = statistics.median(float_run["step_s"]) * 1e3
+        log(f"serve_int8_stablelm: {cfg.name} at full width and depth "
+            f"({L} layers), {B} requests, an int8 cache of {S + G} slots "
+            f"({i8 / 1e9:.3f} GB of codes and scales against "
+            f"{float_bytes / 1e9:.3f} GB float32, "
+            f"{(float_bytes - i8) / 1e9:.3f} GB less) filled from the float "
+            f"prefill's K/V by _quant_kv in {fill_s:.3f} s (prefill logits "
+            f"{pre_err:.3e} from serve_stablelm's); {G - 1} decode steps "
+            f"teacher-forced on serve_stablelm's tokens, {L} K4 launches "
+            f"each ({sum(res['per_step'])} in all); decode {step_ms:.3f} ms "
+            f"a step (median; mean "
+            f"{statistics.mean(res['step_s']) * 1e3:.3f}), the same steps "
+            f"over the float cache before the path {float_ms:.3f} ms "
+            f"(median, timed alike; their logits {own:.3e} from "
+            f"serve_stablelm's); logits {rel:.4%} of the float cache's "
+            f"largest (contract {INT8_RTOL:.0%}), argmax the float's for "
+            f"{agree:.1%}; peak device memory {res['peak']:.3f} GiB; a warm "
+            f"step under torch.profiler: {n_all} kernels, busy {busy:.3f} "
+            f"ms, {n_k4} K4 kernels (the int8 instance all {n_int8}) "
+            f"{k4_ms:.3f} ms = {k4_ms / busy:.1%} of busy")
+        return dict(step_ms=step_ms, float_step_ms=float_ms, rel=rel,
+                    peak_gib=res["peak"], k4_share=k4_ms / busy,
+                    int8_bytes=i8, float_bytes=float_bytes)
+
+    return decode, report
+
+
+
+def int8_vs_cpu(dev, spec: dict):
+    """The card's int8 decode against a CPU run handed the card's model:
+    ``spec["steps"]`` teacher-forced steps (seeded tokens) from an empty
+    int8 cache on the card (``drive`` the returned function), then the
+    same steps on the CPU, the whole run held to the 2% contract; and
+    the last step held tightly: from the card's cache after the step
+    before it, copied to the CPU, both run the last step on the same
+    token, logits within ``LOGIT_TOL`` and the new slot's codes within 1
+    (the count of codes that differ logged)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode_step, init_cache
+    model = spec_model(dev, spec)
+    cfg = model.cfg
+    B, T = spec["requests"], spec["steps"]
+    toks = torch.from_numpy(np.random.default_rng(spec["seed"] + 48).integers(
+        0, cfg.vocab_size, (B, T)))
+    state = {}
+
+    def card():
+        cache = init_cache(model, cfg, B, spec["max_len"], kv_dtype="int8")
+        logits = []
+        for t in range(T):
+            if t == T - 1:   # the cache the last step starts from
+                state["before"] = {k: v.cpu() for k, v in cache.items()}
+            lg, cache = decode_step(model, cfg, cache,
+                                    toks[:, t:t + 1].to(dev))
+            logits.append(lg[:, :cfg.vocab_size].cpu())
+        state["cache"] = {k: v.cpu() for k, v in cache.items()}
+        state["logits"] = torch.stack(logits, 1)
+
+    def report() -> None:
+        t0 = time.perf_counter()
+        cpu = model.cpu()   # the card's run is done
+        cache = init_cache(cpu, cfg, B, spec["max_len"], kv_dtype="int8")
+        logits = []
+        for t in range(T):
+            lg, cache = decode_step(cpu, cfg, cache, toks[:, t:t + 1])
+            logits.append(lg[:, :cfg.vocab_size])
+        lc, lg = torch.stack(logits, 1), state["logits"]
+        rel = float((lg - lc).abs().max() / (lc.abs().max() + 1e-9))
+        check(rel < INT8_RTOL, f"int8_vs_cpu: card's int8 logits {rel:.4%} "
+              f"of the CPU's largest over {T} steps, contract "
+              f"{INT8_RTOL:.0%}")
+        run_codes = sum(int((state["cache"][n] != cache[n]).sum())
+                        for n in ("k", "v"))
+        # the last step alone, both from the card's cache before it
+        one, one_cache = decode_step(cpu, cfg, dict(state["before"]),
+                                     toks[:, T - 1:T])
+        one = one[:, :cfg.vocab_size]
+        err = float((lg[:, -1] - one).abs().max())
+        bound = LOGIT_TOL * max(1.0, float(one.abs().max()))
+        slot = T - 1
+        diffs = [(state["cache"][n][:, :, slot].int()
+                  - one_cache[n][:, :, slot].int()) for n in ("k", "v")]
+        worst = max(int(d.abs().max()) for d in diffs)
+        flips = sum(int((d != 0).sum()) for d in diffs)
+        codes = sum(d.numel() for d in diffs)
+        check(err <= bound and worst <= 1, f"int8_vs_cpu: step {T} from "
+              f"the card's cache: logits max_abs_err {err} > {bound} or a "
+              f"new code {worst} off")
+        log(f"int8_vs_cpu: {cfg.name} at full width cut to {cfg.n_layers} "
+            f"layers, {B} requests, {T} teacher-forced decode steps from an "
+            f"empty int8 cache of {spec['max_len']} slots: card against a "
+            f"CPU run handed the card's model, logits {rel:.4%} of the CPU's "
+            f"largest (contract {INT8_RTOL:.0%}), {run_codes} of the run's "
+            f"codes differ; step {T} from the card's cache after step "
+            f"{T - 1} on both: logits max_abs_err {err:.3e} <= {bound:.3e} "
+            f"(LOGIT_TOL scaled), new slot's codes {flips} of {codes} "
+            f"differ, by at most {worst}; CPU {time.perf_counter() - t0:.1f}"
+            f" s")
+
+    return card, report
+
+
 def run_figures(dev, wrappers: dict) -> dict:
     """The figures path: each sweep-backed runner of
     ``repro_torch.sim.experiments`` on the card, then each host-side one
@@ -2451,6 +2817,7 @@ def main() -> int:
     kernels["ssd_chunked"] = ssd_kernel_phase(card, dev)
     kernels["flash_fwd"] = flash_kernel_phase(card, dev)
     kernels["flash_fwd"]["hd64_audio"] = flash_audio_phase(card, dev)
+    kernels["flash_fwd"]["int8_decode"] = flash_int8_phase(card, dev)
     kernels["flash_fwd"]["gradient"] = flash_grad_phase(card, dev)
     kernels["paged_decode"] = paged_kernel_phase(card, dev)
     if mode == ["--kernels"]:
@@ -2587,8 +2954,8 @@ def main() -> int:
     dcfg = get_config(SERVE_DENSE["arch"])
     L = dcfg.n_layers
     # one attention call a layer, in prefill and in each decode step
-    drive("serve_stablelm", ("flash_fwd",),
-          lambda: serve_path(dev, SERVE_DENSE, {"flash_fwd": (L, L)}))
+    dense = drive("serve_stablelm", ("flash_fwd",),
+                  lambda: serve_path(dev, SERVE_DENSE, {"flash_fwd": (L, L)}))
     check(by_path["flash_fwd"]["serve_stablelm"]
           == L * SERVE_DENSE["gen_len"],
           f"serve_stablelm: {by_path['flash_fwd']['serve_stablelm']} flash "
@@ -2608,6 +2975,33 @@ def main() -> int:
         f"prefill ({L * k4['ms'] / 1e3 / bd['prefill_s']:.1%}) and {L} x "
         f"{k4['decode']['ms']:.4f} ms = {L * k4['decode']['ms']:.3f} ms of "
         f"a decode step ({L * k4['decode']['ms'] / 1e3 / bd['decode_step_s']:.1%})")
+    del bd
+    torch.cuda.empty_cache()
+
+    # ---------------------- the int8 KV cache: full width, and vs the CPU
+    G = SERVE_DENSE["gen_len"]
+    decode, report = serve_int8_stablelm(dev, SERVE_DENSE, dense)
+    res = drive("serve_int8_stablelm", ("flash_fwd",), decode)
+    check(by_path["flash_fwd"]["serve_int8_stablelm"] == L * (G - 1),
+          f"serve_int8_stablelm: {by_path['flash_fwd']['serve_int8_stablelm']}"
+          f" K4 launches, expected {L} x {G - 1} steps")
+    i8 = report(res)
+    k4i = kernels["flash_fwd"]["int8_decode"]["stablelm-3b"]
+    log(f"serve_int8_stablelm: from the kernel phase, int8 attention is {L} "
+        f"x {k4i['ms']:.4f} ms = {L * k4i['ms']:.3f} ms of a decode step "
+        f"({L * k4i['ms'] / i8['step_ms']:.1%}), against {L} x "
+        f"{k4['decode']['ms']:.4f} ms = {L * k4['decode']['ms']:.3f} ms "
+        f"over the float cache")
+    del decode, report, res, dense
+    torch.cuda.empty_cache()
+    card_run, report = int8_vs_cpu(dev, INT8_VS_CPU)
+    drive("int8_vs_cpu", ("flash_fwd",), card_run)
+    n_i8 = INT8_VS_CPU["layers"] * INT8_VS_CPU["steps"]
+    check(by_path["flash_fwd"]["int8_vs_cpu"] == n_i8,
+          f"int8_vs_cpu: {by_path['flash_fwd']['int8_vs_cpu']} K4 launches,"
+          f" expected {n_i8}")
+    report()
+    del card_run, report
     torch.cuda.empty_cache()
 
     # ------------------------ the page pool's data plane, full width
@@ -2828,6 +3222,10 @@ def main() -> int:
     for name, k in kernels.items():
         k["launches"] = sum(by_path[name].values())
         k["launches_by_path"] = by_path[name]
+    # the int8 instance's launches, every one at stablelm-3b's shape
+    kernels["flash_fwd"]["int8_decode"]["stablelm-3b"]["launches"] = sum(
+        by_path["flash_fwd"][p] for p in ("serve_int8_stablelm",
+                                          "int8_vs_cpu"))
     check_profiler_records()
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")

@@ -82,6 +82,19 @@
 //     ring of shared-memory tiles: a cp.async ring of three 64-key stages,
 //     with its arithmetic taken out, streamed slower than these loads at
 //     one query head a KV head (PERF.md, section 6).
+//   * decode over the int8 KV cache (entry flash_fwd_decode_i8): the same
+//     configuration, instanced for int8 K/V with one float32 scale a row
+//     (token, KV head) in ks, vs (B, Skv, K, 1), the reference's
+//     _quant_kv layout.  A lane loads the codes of columns lane + 32 j of
+//     the step's 8 keys (one byte each: a warp's row is one 32-byte
+//     sector, coalesced but short) and each key's two scales (one float,
+//     the same address for every lane), and dequantizes in registers,
+//     float(code) * scale, one rounding as the reference's
+//     k_cache.astype(f32) * ksc, before the same FMAs; no float copy of
+//     the cache is made.  Keys past the valid length load neither codes
+//     nor scales.  The next step's keys are held as loaded (codes), so
+//     the registers in flight are no more than the float instance's.
+//     The tile configuration takes no int8 (kernel.py raises for Sq > 4).
 // Both take the same key range [lo, hi) from the masks, so KV tiles no
 // query can reach are never loaded (the TPU kernel's block skip), and both
 // apply the same mask function to every score.  No library.  One launch
@@ -111,10 +124,18 @@
 // mixtral-8x7b's 8 of 128; the FMAs, 2 G Sq per K/V float, take 2.5% (G
 // 1) to 10% (G 4) of the CUDA cores' float32 rate at that byte rate.  The
 // CTAs the grid needs to stream at that rate come from the key splits.
+// The int8 instance reads hd + 4 bytes a K or V row (codes and a scale):
+// at kv_len 1025, with q and o, 44.2 MB (0.0132 ms) for stablelm-3b,
+// 17.6 MB (0.0052 ms) for mixtral-8x7b and 17.9 MB (0.0053 ms) for
+// seamless's decoder self-attention, near a launch's own latency.  Its
+// FMAs are the float instance's, so at that byte rate they take about
+// four times their share above, 10% (G 1) to 40% (G 4) of the rate.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -606,36 +627,76 @@ __device__ __forceinline__ float reduce_scatter8(float (&x)[kStepKeys],
   return s;
 }
 
-// Keys k0..k0 + 7 of K and V, columns lane + 32 j of each; keys at or past
-// `end` are 0 and never loaded.
-template <int DJ>
-__device__ __forceinline__ void load_step(float (&kk)[kStepKeys][DJ],
-                                          float (&vv)[kStepKeys][DJ],
-                                          const float* kb, const float* vb,
-                                          int64_t step, int k0, int end,
+// A warp's step in registers as loaded: keys k0..k0 + 7 of K and V,
+// columns lane + 32 j of each, as stored (float32, or int8 codes), and for
+// int8 each key's two scales.
+template <int DJ, typename KV>
+struct StepRegs {
+  KV k[kStepKeys][DJ], v[kStepKeys][DJ];
+  float ks[kStepKeys], vs[kStepKeys];
+};
+
+template <typename KV>
+constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+
+// Loads keys k0..k0 + 7; keys at or past `end` are 0 and load nothing,
+// neither codes nor scales.  An int8 key's scale is one float a token and
+// KV head (stride K floats a token), the same address for every lane.
+template <int DJ, typename KV>
+__device__ __forceinline__ void load_step(StepRegs<DJ, KV>& st, const KV* kb,
+                                          const KV* vb, const float* ksb,
+                                          const float* vsb, int64_t step,
+                                          int64_t sstep, int k0, int end,
                                           int hd, int lane) {
 #pragma unroll
   for (int u = 0; u < kStepKeys; ++u) {
     const bool in = k0 + u < end;
+    if constexpr (kInt8<KV>) {
+      st.ks[u] = in ? ksb[(k0 + u) * sstep] : 0.f;
+      st.vs[u] = in ? vsb[(k0 + u) * sstep] : 0.f;
+    }
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int col = lane + 32 * j;
       const int64_t at = (k0 + u) * step + col;
-      kk[u][j] = in && col < hd ? kb[at] : 0.f;
-      vv[u][j] = in && col < hd ? vb[at] : 0.f;
+      st.k[u][j] = in && col < hd ? kb[at] : KV(0);
+      st.v[u][j] = in && col < hd ? vb[at] : KV(0);
     }
   }
+}
+
+// The step's K and V as float32: int8 codes times their key's scale, one
+// rounding, as the reference's k_cache.astype(f32) * ksc; float32 as is.
+template <int DJ, typename KV>
+__device__ __forceinline__ void dequant_step(const StepRegs<DJ, KV>& st,
+                                             float (&kk)[kStepKeys][DJ],
+                                             float (&vv)[kStepKeys][DJ]) {
+#pragma unroll
+  for (int u = 0; u < kStepKeys; ++u)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      if constexpr (kInt8<KV>) {
+        kk[u][j] = static_cast<float>(st.k[u][j]) * st.ks[u];
+        vv[u][j] = static_cast<float>(st.v[u][j]) * st.vs[u];
+      } else {
+        kk[u][j] = static_cast<float>(st.k[u][j]);
+        vv[u][j] = static_cast<float>(st.v[u][j]);
+      }
+    }
 }
 
 // One cluster of n_split CTAs (gridDim.x = B K n_split, the cluster along
 // x) per (b, KV head) and pass of up to RMAX query rows (blockIdx.y): the
 // CTA of rank `split` takes the split-th share of the pass's 64-key tiles
 // and every query row of the pass, row r = qp G + g for query qp of head
-// kvh G + g.  A lane holds head columns lane + 32 j, j < DJ.
-template <int DJ, int RMAX>
+// kvh G + g.  A lane holds head columns lane + 32 j, j < DJ.  KV: float
+// K/V, or int8 codes with their scales ks, vs (B, Skv, K, 1; null for
+// float).
+template <int DJ, int RMAX, typename KV>
 __global__ void __launch_bounds__(kDecThreads, RMAX == 1 ? 2 : 1)
-flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
+flash_decode_kernel(const float* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v, const float* __restrict__ ks,
+                    const float* __restrict__ vs, float* __restrict__ o,
                     const int* __restrict__ kv_len, Shape sh) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -667,8 +728,11 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int64_t q_row = static_cast<int64_t>(sh.H) * hd;  // token stride
   const int64_t k_step = static_cast<int64_t>(sh.K) * hd;
-  const float* kb = k + (static_cast<int64_t>(b) * sh.Skv * sh.K + kvh) * hd;
-  const float* vb = v + (static_cast<int64_t>(b) * sh.Skv * sh.K + kvh) * hd;
+  const int64_t row_kv = static_cast<int64_t>(b) * sh.Skv * sh.K + kvh;
+  const KV* kb = k + row_kv * hd;
+  const KV* vb = v + row_kv * hd;
+  const float* ksb = kInt8<KV> ? ks + row_kv : nullptr;  // stride K a token
+  const float* vsb = kInt8<KV> ? vs + row_kv : nullptr;
   const float sl2 = sh.scale * 1.4426950408889634f;  // scale * log2 e
   const int sk = (lane >> 2) & 7;  // the key whose score a lane ends with
   int qp[RMAX];
@@ -697,16 +761,19 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // registers for a second step)
   constexpr bool kAhead = RMAX > 1 && RMAX <= 4;
   constexpr int kRound = kDecWarps * kStepKeys;
-  float kk[kStepKeys][DJ], vv[kStepKeys][DJ];
+  StepRegs<DJ, KV> cur;  // this step's keys as loaded
   if (kAhead)
-    load_step(kk, vv, kb, vb, k_step, kfirst + warp * kStepKeys, kend, hd,
-              lane);
+    load_step(cur, kb, vb, ksb, vsb, k_step, sh.K, kfirst + warp * kStepKeys,
+              kend, hd, lane);
   for (int k0 = kfirst + warp * kStepKeys; k0 < kend; k0 += kRound) {
-    float nk[kStepKeys][DJ], nv[kStepKeys][DJ];
+    StepRegs<DJ, KV> nxt;
     if (kAhead)
-      load_step(nk, nv, kb, vb, k_step, k0 + kRound, kend, hd, lane);
+      load_step(nxt, kb, vb, ksb, vsb, k_step, sh.K, k0 + kRound, kend, hd,
+                lane);
     else
-      load_step(kk, vv, kb, vb, k_step, k0, kend, hd, lane);
+      load_step(cur, kb, vb, ksb, vsb, k_step, sh.K, k0, kend, hd, lane);
+    float kk[kStepKeys][DJ], vv[kStepKeys][DJ];
+    dequant_step(cur, kk, vv);
     const bool vis_key = k0 + sk < kend;
     // every row of the instance, so that the rows' chains interleave; a
     // pass's rows past nr repeat its last one and are never stored
@@ -748,14 +815,7 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < DJ; ++j) acc[r][j] = fmaf(pu, vv[u][j], acc[r][j]);
       }
     }
-    if (kAhead)
-#pragma unroll
-      for (int u = 0; u < kStepKeys; ++u)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          kk[u][j] = nk[u][j];
-          vv[u][j] = nv[u][j];
-        }
+    if (kAhead) cur = nxt;
   }
 
   // each warp's (m, l, acc), then the CTA's
@@ -840,10 +900,10 @@ int launch_tile(const float* q, const float* k, const float* v, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DJ, int RMAX>
-int launch_decode(const float* q, const float* k, const float* v, float* o,
-                  const int* kv_len, const Shape& sh, int n_split,
-                  cudaStream_t stream) {
+template <int DJ, int RMAX, typename KV>
+int launch_decode(const float* q, const KV* k, const KV* v, const float* ks,
+                  const float* vs, float* o, const int* kv_len,
+                  const Shape& sh, int n_split, cudaStream_t stream) {
   const int R = sh.H / sh.K * sh.Sq;
   // at most 37,440 bytes (8 rows of 128), under the 48 KB a launch may
   // take without raising the kernel's limit
@@ -861,8 +921,9 @@ int launch_decode(const float* q, const float* k, const float* v, float* o,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, flash_decode_kernel<DJ, RMAX>, q, k, v, o, kv_len, sh);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, flash_decode_kernel<DJ, RMAX, KV>, q, k, v,
+                         ks, vs, o, kv_len, sh);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -870,20 +931,48 @@ int launch_decode(const float* q, const float* k, const float* v, float* o,
 // The decode instance for the head's width (DJ columns a lane) and the
 // rows of a pass: one head at one query; up to 4 (a GQA group of 4 at one
 // query, or one head at four); larger groups in passes of 8.
-template <int RMAX>
-int launch_decode_rows(const float* q, const float* k, const float* v,
-                       float* o, const int* kv_len, const Shape& sh,
-                       int n_split, cudaStream_t stream) {
+template <int RMAX, typename KV>
+int launch_decode_rows(const float* q, const KV* k, const KV* v,
+                       const float* ks, const float* vs, float* o,
+                       const int* kv_len, const Shape& sh, int n_split,
+                       cudaStream_t stream) {
   switch ((sh.hd + 31) / 32) {
     case 1:
-      return launch_decode<1, RMAX>(q, k, v, o, kv_len, sh, n_split, stream);
+      return launch_decode<1, RMAX>(q, k, v, ks, vs, o, kv_len, sh, n_split,
+                                    stream);
     case 2:
-      return launch_decode<2, RMAX>(q, k, v, o, kv_len, sh, n_split, stream);
+      return launch_decode<2, RMAX>(q, k, v, ks, vs, o, kv_len, sh, n_split,
+                                    stream);
     case 3:
-      return launch_decode<3, RMAX>(q, k, v, o, kv_len, sh, n_split, stream);
+      return launch_decode<3, RMAX>(q, k, v, ks, vs, o, kv_len, sh, n_split,
+                                    stream);
     default:
-      return launch_decode<4, RMAX>(q, k, v, o, kv_len, sh, n_split, stream);
+      return launch_decode<4, RMAX>(q, k, v, ks, vs, o, kv_len, sh, n_split,
+                                    stream);
   }
+}
+
+template <typename KV>
+int launch_decode_any(const float* q, const KV* k, const KV* v,
+                      const float* ks, const float* vs, float* o,
+                      const int* kv_len, const Shape& sh, int n_split,
+                      cudaStream_t stream) {
+  const int rows = sh.H / sh.K * sh.Sq;  // query rows a (b, KV head) serves
+  if (rows == 1)
+    return launch_decode_rows<1>(q, k, v, ks, vs, o, kv_len, sh, n_split,
+                                 stream);
+  if (rows <= 4)
+    return launch_decode_rows<4>(q, k, v, ks, vs, o, kv_len, sh, n_split,
+                                 stream);
+  return launch_decode_rows<8>(q, k, v, ks, vs, o, kv_len, sh, n_split,
+                               stream);
+}
+
+bool bad_shape(int B, int Sq, int Skv, int H, int K, int hd, int window,
+               int n_split) {
+  return B < 1 || Sq < 1 || Skv < 1 || H < 1 || K < 1 || H % K != 0 ||
+         hd < 1 || hd > kMaxHd || window < 0 || n_split < 1 ||
+         n_split > kMaxSplit;
 }
 
 }  // namespace
@@ -900,9 +989,7 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                   const void* kv_len, int B, int Sq, int Skv, int H, int K,
                   int hd, int seq_k, int causal, int window, int n_split,
                   float scale, void* stream) {
-  if (B < 1 || Sq < 1 || Skv < 1 || H < 1 || K < 1 || H % K != 0 ||
-      hd < 1 || hd > kMaxHd || window < 0 || n_split < 1 ||
-      n_split > kMaxSplit)
+  if (bad_shape(B, Sq, Skv, H, K, hd, window, n_split))
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{B, Sq, Skv, H, K, hd, seq_k, causal != 0, window, scale};
   const auto* qf = static_cast<const float*>(q);
@@ -911,14 +998,9 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
   auto* of = static_cast<float*>(o);
   const auto* len = static_cast<const int*>(kv_len);
   auto st = static_cast<cudaStream_t>(stream);
-  if (Sq <= kDecodeMaxSq) {
-    const int rows = H / K * Sq;  // query rows a (b, KV head) serves
-    if (rows == 1)
-      return launch_decode_rows<1>(qf, kf, vf, of, len, sh, n_split, st);
-    if (rows <= 4)
-      return launch_decode_rows<4>(qf, kf, vf, of, len, sh, n_split, st);
-    return launch_decode_rows<8>(qf, kf, vf, of, len, sh, n_split, st);
-  }
+  if (Sq <= kDecodeMaxSq)
+    return launch_decode_any<float>(qf, kf, vf, nullptr, nullptr, of, len,
+                                    sh, n_split, st);
   switch ((hd + 7) / 8) {
     case 1: return launch_tile<8>(qf, kf, vf, of, len, sh, st);
     case 2: return launch_tile<16>(qf, kf, vf, of, len, sh, st);
@@ -937,6 +1019,25 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
     case 15: return launch_tile<120>(qf, kf, vf, of, len, sh, st);
     default: return launch_tile<128>(qf, kf, vf, of, len, sh, st);
   }
+}
+
+// The int8 decode instance: k, v (B, Skv, K, hd) int8 codes and ks, vs
+// (B, Skv, K, 1) float32 scales, all contiguous; Sq <= 4 (the decode
+// configuration alone); the rest as flash_fwd_f32.
+int flash_fwd_decode_i8(const void* q, const void* k, const void* v,
+                        const void* ks, const void* vs, void* o,
+                        const void* kv_len, int B, int Sq, int Skv, int H,
+                        int K, int hd, int seq_k, int causal, int window,
+                        int n_split, float scale, void* stream) {
+  if (bad_shape(B, Sq, Skv, H, K, hd, window, n_split) || Sq > kDecodeMaxSq)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape sh{B, Sq, Skv, H, K, hd, seq_k, causal != 0, window, scale};
+  return launch_decode_any<int8_t>(
+      static_cast<const float*>(q), static_cast<const int8_t*>(k),
+      static_cast<const int8_t*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<float*>(o),
+      static_cast<const int*>(kv_len), sh, n_split,
+      static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_fwd_error_string(int err) {

@@ -20,6 +20,16 @@ merged through the cluster's shared memory within the one launch.  A
 decode call reads the valid K and V once, which bounds it (0.0502 ms for
 stablelm-3b's 8 x 1025 tokens at 3.35 TB/s).
 
+The int8 decode cache has an instance of its own of the decode
+configuration (entry ``flash_fwd_decode_i8``): K and V int8, each row
+(token, KV head) with one float32 scale in ``kv_scales`` (B, Skv, K,
+1), the reference's ``_quant_kv`` layout.  It loads a row's codes and
+its scale and dequantizes in registers (``float(code) * scale``, the
+reference's rounding) before the same arithmetic, so no float copy of
+the cache is made; its bound is (hd + 4) bytes a K or V row (0.0132 ms
+at stablelm-3b's).  The prefill (tile) configuration takes no int8: an
+int8 call with more than ``DECODE_MAX_SQ`` queries raises.
+
 :func:`flash_fwd` takes CUDA tensors only (``ops.flash_attention``
 sends CPU tensors to the plain chunked version): it checks device,
 dtype, shapes and contiguity, allocates the output, launches on the
@@ -32,7 +42,7 @@ import ctypes
 import functools
 import math
 from pathlib import Path
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -43,6 +53,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 cuda_build.register("flash_fwd", CSRC / "flash_fwd.cu", {
     "flash_fwd_f32": ([P] * 5 + [INT] * 10 + [ctypes.c_float, P],
                       ctypes.c_int),
+    "flash_fwd_decode_i8": ([P] * 7 + [INT] * 10 + [ctypes.c_float, P],
+                            ctypes.c_int),
 })
 MAX_HD = 128   # the kernel's widest head
 DECODE_MAX_SQ = 4   # queries at or below which the decode configuration runs
@@ -74,24 +86,37 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check(q, k, v, kv_len) -> None:
+def _check(q, k, v, kv_len, kv_scales=None) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: tensors must lie on a CUDA device, "
                          f"got {q.device}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_fwd: q, k and v must be 4-d")
-    B, _, H, hd = q.shape
+    B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     if H % K:
         raise ValueError(f"flash_fwd: {H} query heads are not a multiple "
                          f"of {K} KV heads")
     if not 1 <= hd <= MAX_HD:
         raise ValueError(f"flash_fwd: head width {hd} not in 1..{MAX_HD}")
-    for name, t, shape in (("q", q, tuple(q.shape)),
-                           ("k", k, (B, Skv, K, hd)),
-                           ("v", v, (B, Skv, K, hd))):
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_fwd: {name} must be float32, got "
+    kv_dtype = torch.float32 if kv_scales is None else torch.int8
+    if kv_scales is not None:
+        if Sq > DECODE_MAX_SQ:
+            raise ValueError(f"flash_fwd: int8 K/V take the decode "
+                             f"configuration only, Sq <= {DECODE_MAX_SQ}; "
+                             f"got {Sq}")
+        if len(kv_scales) != 2:
+            raise ValueError("flash_fwd: kv_scales must be (k_scale, "
+                             "v_scale)")
+    tensors = [("q", q, tuple(q.shape), torch.float32),
+               ("k", k, (B, Skv, K, hd), kv_dtype),
+               ("v", v, (B, Skv, K, hd), kv_dtype)]
+    if kv_scales is not None:
+        tensors += [(name, t, (B, Skv, K, 1), torch.float32)
+                    for name, t in zip(("k_scale", "v_scale"), kv_scales)]
+    for name, t, shape, dtype in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"flash_fwd: {name} must be {dtype}, got "
                             f"{t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"flash_fwd: {name} must be {shape}, got "
@@ -110,14 +135,17 @@ def _check(q, k, v, kv_len) -> None:
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
-              kv_len: Optional[Union[int, torch.Tensor]] = None
+              kv_len: Optional[Union[int, torch.Tensor]] = None,
+              kv_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> torch.Tensor:
     """Attention of q (B, Sq, H, hd) over k, v (B, Skv, K, hd), all
     contiguous float32 on one CUDA device; returns (B, Sq, H, hd).
     ``kv_len``: valid KV entries, an int or a one-element int32 tensor
     on the device (read by the kernel); None or 0 means Skv, as the TPU
-    kernel's ``seq_k``."""
-    _check(q, k, v, kv_len)
+    kernel's ``seq_k``.  ``kv_scales``: (k_scale, v_scale), contiguous
+    float32 (B, Skv, K, 1), with int8 k and v and Sq <= 4: the int8
+    decode instance."""
+    _check(q, k, v, kv_len, kv_scales)
     if window < 0:
         raise ValueError(f"flash_fwd: window {window} < 0")
     B, Sq, H, _ = q.shape
@@ -125,25 +153,30 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     n_split = (decode_splits(B * K, H // K * Sq, Skv,
                              _sm_count(q.device.index or 0))
                if Sq <= DECODE_MAX_SQ else 1)
-    o = _launch(q, k, v, causal, window, kv_len, n_split)
+    o = _launch(q, k, v, causal, window, kv_len, n_split, kv_scales)
     flash_fwd.launches += 1
     return o
 
 
 def _launch(q, k, v, causal: bool, window: int, kv_len,
-            n_split: int) -> torch.Tensor:
+            n_split: int, kv_scales=None) -> torch.Tensor:
     """One launch of the kernel on checked inputs, the decode
-    configuration split ``n_split`` ways; counts nothing (``flash_fwd``
-    does, and ``decode_sweep`` times other splits through this)."""
+    configuration split ``n_split`` ways (the int8 instance with
+    ``kv_scales``); counts nothing (``flash_fwd`` does, and
+    ``decode_sweep`` times other splits through this)."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     dev_len = kv_len if isinstance(kv_len, torch.Tensor) else None
     seq_k = Skv if kv_len is None or dev_len is not None else (
         int(kv_len) or Skv)
+    ptrs = [P(q.data_ptr()), P(k.data_ptr()), P(v.data_ptr())]
+    if kv_scales is not None:
+        ptrs += [P(t.data_ptr()) for t in kv_scales]
     cuda_build.launch(
-        "flash_fwd", "flash_fwd_f32", q.device,
-        P(q.data_ptr()), P(k.data_ptr()), P(v.data_ptr()), P(o.data_ptr()),
+        "flash_fwd", "flash_fwd_f32" if kv_scales is None
+        else "flash_fwd_decode_i8", q.device,
+        *ptrs, P(o.data_ptr()),
         P(None if dev_len is None else dev_len.data_ptr()),
         B, Sq, Skv, H, K, hd, seq_k, int(causal), int(window), n_split,
         ctypes.c_float(1.0 / math.sqrt(hd)))

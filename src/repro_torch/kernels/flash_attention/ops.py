@@ -6,7 +6,8 @@ The forward is the ``flash_fwd`` CUDA kernel on the GPU and the plain
 chunked version on the CPU; :class:`FlashAttention` gives it a backward
 written out in torch ops (the reference trains through autodiff of plain
 ``jnp`` and has no backward kernel).  Under ``torch.no_grad()`` only the
-forward runs.
+forward runs.  An int8 K/V with its scales (the int8 decode cache) takes
+the forward alone: codes have no gradient.
 """
 from __future__ import annotations
 
@@ -16,29 +17,34 @@ from typing import Optional, Union
 import torch
 
 from .kernel import flash_fwd
-from .ref import NEG_INF, _len, _mask, flash_attention_chunked_ref
+from .ref import (NEG_INF, Scales, _len, _mask,
+                  flash_attention_chunked_ref)
 
 Length = Optional[Union[int, torch.Tensor]]
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, window: int, kv_len: Length) -> torch.Tensor:
+             causal: bool, window: int, kv_len: Length,
+             kv_scales: Scales = None) -> torch.Tensor:
     if q.device.type != "cpu":
         return flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                         causal=causal, window=window, kv_len=kv_len)
+                         causal=causal, window=window, kv_len=kv_len,
+                         kv_scales=kv_scales)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
 
-    def fold(t, reps):      # (B, S, n, hd) -> (B * n * reps, S, hd)
+    def fold(t, reps):      # (B, S, n, w) -> (B * n * reps, S, w)
         t = t.transpose(1, 2)
         if reps > 1:
             t = t.repeat_interleave(reps, dim=1)
-        return t.reshape(-1, t.shape[2], hd)
+        return t.reshape(-1, t.shape[2], t.shape[3])
 
     out = flash_attention_chunked_ref(
         fold(q, 1), fold(k, G), fold(v, G), causal=causal, window=window,
-        seq_k=0 if kv_len is None else kv_len)
+        seq_k=0 if kv_len is None else kv_len,
+        kv_scales=None if kv_scales is None else tuple(
+            fold(s, G) for s in kv_scales))
     return out.reshape(B, H, Sq, hd).transpose(1, 2)
 
 
@@ -106,7 +112,8 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    kv_len: Length = None) -> torch.Tensor:
+                    kv_len: Length = None,
+                    kv_scales: Scales = None) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Skv, K, hd) with H % K == 0 (GQA: query
     head h reads KV head h // (H / K)).  Returns (B, Sq, H, hd).
 
@@ -120,5 +127,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV head itself and raises off a CUDA device.  There is no other
     fallback.  Differentiable in q, k and v through
     :class:`FlashAttention`.
+
+    ``kv_scales``: (k_scale, v_scale), each (B, Skv, K, 1) float32, for
+    int8 ``k`` and ``v`` (the int8 decode cache): entry ``k[b, t, j]``
+    stands for ``k[b, t, j].float() * k_scale[b, t, j]``.  On the CPU the
+    plain version dequantizes first, as the reference; on the GPU the
+    kernel's decode configuration (Sq <= 4) reads the codes and scales
+    and dequantizes in registers.  Forward only.
     """
+    if kv_scales is not None:
+        return _forward(q, k, v, causal, window, kv_len, kv_scales)
     return FlashAttention.apply(q, k, v, causal, window, kv_len)

@@ -9,6 +9,10 @@ statistics and sums in float32 whatever the input type.
   ``repro/models/attention.py::gqa_attention``), with the kernel's
   64-key tiles.  CPU tensors run it in place of the kernel.
 
+Both take an int8 K/V with ``kv_scales``, each (BH, Skv, 1) float32,
+and dequantize it first as the reference's int8 cache does (the codes
+as float32 times their row's scale, ``k_cache.astype(f32) * ksc``).
+
 Masks, as in the TPU kernel: causal ``k_pos <= q_pos``, window
 ``k_pos > q_pos - window``, true lengths ``k_pos < seq_k`` and ``q_pos <
 seq_q`` (0 means the full length; ``seq_k`` may be a 0-d integer tensor,
@@ -17,13 +21,20 @@ the decode cache's valid length).  A query with no visible key gives 0.
 from __future__ import annotations
 
 import math
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 NEG_INF = -1e30   # finite: a fully masked row must not give exp(-inf + inf)
 CHUNK = 64        # the kernel's KV tile
 Length = Union[int, torch.Tensor]
+Scales = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _dequant(k: torch.Tensor, v: torch.Tensor, kv_scales: Scales):
+    if kv_scales is None:
+        return k, v
+    return k.float() * kv_scales[0], v.float() * kv_scales[1]
 
 
 def _mask(Sq: int, k_pos: torch.Tensor, *, causal: bool, window: int,
@@ -41,9 +52,10 @@ def _mask(Sq: int, k_pos: torch.Tensor, *, causal: bool, window: int,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        seq_q: Length = 0, seq_k: Length = 0
-                        ) -> torch.Tensor:
+                        seq_q: Length = 0, seq_k: Length = 0,
+                        kv_scales: Scales = None) -> torch.Tensor:
     """Naive softmax attention over the whole (Sq, Skv) score matrix."""
+    k, v = _dequant(k, v, kv_scales)
     BH, Sq, hd = q.shape
     Skv = k.shape[1]
     mask = _mask(Sq, torch.arange(Skv, device=q.device), causal=causal,
@@ -57,9 +69,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_chunked_ref(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, *, causal: bool = True,
                                 window: int = 0, seq_q: Length = 0,
-                                seq_k: Length = 0) -> torch.Tensor:
+                                seq_k: Length = 0, kv_scales: Scales = None
+                                ) -> torch.Tensor:
     """Online softmax over KV chunks of ``CHUNK`` keys, carrying the row
     max ``m``, the row sum ``l`` and the unnormalized output ``acc``."""
+    k, v = _dequant(k, v, kv_scales)
     BH, Sq, hd = q.shape
     Skv = k.shape[1]
     scale = 1.0 / math.sqrt(hd)

@@ -11,17 +11,22 @@ valid prefix (:func:`decode_attention`: ``causal=False`` and the true
 length ``kv_len``, the TPU kernel's ``seq_k``), and in the audio family
 over the encoder's K/V as well (:func:`cross_attention`).
 
-Not ported: the int8 KV cache (``kv_scales``, ROADMAP section 1 item 4),
-which the serve path does not use.
+The int8 KV cache: :func:`_quant_kv` quantizes each (token, KV head) row
+symmetrically to int8 codes and one float32 scale, as the reference
+does; :func:`decode_attention` with ``kv_scales`` writes the new token's
+codes and scales and attends over the int8 cache, which the ``flash_fwd``
+kernel's decode configuration reads as it is (codes and scales,
+dequantized in registers) and the plain version dequantizes first.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ref import NEG_INF
+from repro_torch.kernels.flash_attention.ref import NEG_INF, Scales
 from .layers import apply_rope, dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -42,12 +47,15 @@ def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  kv_len: Optional[torch.Tensor] = None,
+                  kv_scales: Scales = None) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Skv, K, hd); H % K == 0.  ``kv_len``:
     the number of valid KV entries (a 0-d int32 tensor on the device, so
-    decode passes it without a host sync).  Returns (B, Sq, H, hd)."""
+    decode passes it without a host sync).  ``kv_scales``: the (B, Skv,
+    K, 1) float32 scales of int8 ``k`` and ``v``.  Returns (B, Sq, H,
+    hd)."""
     return flash_attention(q, k, v, causal=causal, window=window,
-                           kv_len=kv_len)
+                           kv_len=kv_len, kv_scales=kv_scales)
 
 
 def attn_apply(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
@@ -92,11 +100,32 @@ def cross_attention(p: Params, x: torch.Tensor, k: torch.Tensor,
     return out.reshape(B, S, n_heads * hd) @ p["wo"]
 
 
+@functools.lru_cache(maxsize=None)
+def _code_max(device: torch.device) -> torch.Tensor:
+    """127 as a 0-d float32 tensor on ``device``, made once: CUDA divides
+    by a Python scalar (or a CPU one) as a product with its reciprocal,
+    one rounding off the CPU's and the reference's scale."""
+    return torch.tensor(127.0, device=device)
+
+
+def _quant_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of each (token, head) row of K or V
+    entries, the reference's to the bit: ``scale = max(amax, 1e-6) /
+    127`` over the last axis in float32, codes ``clip(round(x / scale),
+    -127, 127)`` by a true division (never a product with the
+    reciprocal) and round-half-to-even, as ``jnp.round``.  Returns (int8
+    codes, float32 scales with a trailing 1)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-6) / _code_max(amax.device)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
 def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_len: torch.Tensor, *,
                      n_heads: int, n_kv: int, hd: int, rope_theta: float,
-                     window: int = 0, kv_scales=None
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     window: int = 0, kv_scales: Scales = None):
     """One-token decode: write the token's K/V into the cache, attend over
     the valid prefix.
 
@@ -106,13 +135,21 @@ def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     buffer; the last slot once a cache without a window is full, and
     the token still attends over ``S_max`` entries).  **The caches are
     updated in place** (the reference returns new arrays): the step
-    writes one slot of a cache that is gigabytes at full width.  Returns (out (B, 1, D), k_cache, v_cache), the caches
-    being the same tensors that were passed in.
+    writes one slot of a cache that is gigabytes at full width.  Returns
+    (out (B, 1, D), k_cache, v_cache), the caches being the same tensors
+    that were passed in.
+
+    ``kv_scales``: (k_scale, v_scale), each (B, S_max, K, 1) float32, for
+    an int8 cache.  The token's K and V (after RoPE) are quantized by
+    :func:`_quant_kv` and their codes and scales written at the slot, in
+    place, and attention reads the int8 cache with its scales.  Returns
+    (out, k_cache, v_cache, (k_scale, v_scale)), as the reference does.
     """
-    if kv_scales is not None:
-        raise NotImplementedError(
-            "int8 KV cache (kv_scales) is not ported yet (ROADMAP.md, "
-            "section 1 item 4)")
+    quant = kv_scales is not None
+    if (k_cache.dtype == torch.int8) != quant:
+        raise ValueError(f"decode_attention: a {k_cache.dtype} cache "
+                         + ("takes no kv_scales" if quant else
+                            "needs its kv_scales"))
     B = x.shape[0]
     S_max = k_cache.shape[1]
     q = (x @ p["wq"]).reshape(B, 1, n_heads, hd)
@@ -126,9 +163,17 @@ def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     # raise (a device assert on CUDA) at slot S_max
     slot = (cur_len % S_max if window
             else torch.clamp(cur_len, max=S_max - 1)).reshape(1).long()
+    kv_len = torch.clamp(cur_len + 1, max=S_max)
+    if quant:
+        (k8, ks), (v8, vs) = _quant_kv(k), _quant_kv(v)
+        for dst, src in zip((k_cache, v_cache, *kv_scales), (k8, v8, ks, vs)):
+            dst.index_copy_(1, slot, src)
+        out = gqa_attention(q, k_cache, v_cache, causal=False, kv_len=kv_len,
+                            kv_scales=kv_scales)
+        return (out.reshape(B, 1, n_heads * hd) @ p["wo"], k_cache, v_cache,
+                kv_scales)
     k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
     v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
     out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-                        causal=False,
-                        kv_len=torch.clamp(cur_len + 1, max=S_max))
+                        causal=False, kv_len=kv_len)
     return out.reshape(B, 1, n_heads * hd) @ p["wo"], k_cache, v_cache

@@ -140,7 +140,9 @@ class DenseBlock(nn.Module):
         audio encoder.  Decode: x (B, 1, D) with ``state`` {"k", "v"}
         (B, S_max, K, hd) caches and "len", the valid entries before
         this token -> (x, {"k", "v"}), the same cache tensors, written in
-        place.  Both dicts also hold "aux", the MoE layer's
+        place; an int8 cache's state also holds its scales "ks", "vs"
+        (B, S_max, K, 1), returned and written in place beside it.  Both
+        dicts also hold "aux", the MoE layer's
         load-balancing loss (0.0 in the dense family).  A layer with
         cross-attention takes ``enc_out`` (B, S_enc, D) in prefill and
         returns its K/V as "xk", "xv" (B, S_enc, K, hd); in decode it
@@ -155,13 +157,19 @@ class DenseBlock(nn.Module):
         hn = apply_norm(cfg.norm, x, self.ln1)
         kw = dict(n_heads=dims.H, n_kv=dims.K, hd=dims.hd,
                   rope_theta=cfg.rope_theta, window=cfg.sliding_window)
+        out = {"aux": 0.0}
         if state is None:
-            y, k, v = attn_apply(dict(self.attn), hn, causal=causal, **kw)
+            y, out["k"], out["v"] = attn_apply(dict(self.attn), hn,
+                                               causal=causal, **kw)
+        elif "ks" in state:     # the int8 cache, its scales beside it
+            y, out["k"], out["v"], (out["ks"], out["vs"]) = decode_attention(
+                dict(self.attn), hn, state["k"], state["v"], state["len"],
+                kv_scales=(state["ks"], state["vs"]), **kw)
         else:
-            y, k, v = decode_attention(dict(self.attn), hn, state["k"],
-                                       state["v"], state["len"], **kw)
+            y, out["k"], out["v"] = decode_attention(
+                dict(self.attn), hn, state["k"], state["v"], state["len"],
+                **kw)
         x = x + y
-        out = {"k": k, "v": v, "aux": 0.0}
         if hasattr(self, "xattn"):
             if (enc_out is None) == (state is None):
                 raise ValueError("a cross-attention layer takes enc_out in "

@@ -6,7 +6,12 @@ Cache keys and shapes are the reference's (B = batch, L = layers):
 
   dense, MoE, audio:
           k, v (L, B, S, K, hd)           float32; S = max_len, or the
-                                          sliding window (a ring buffer)
+                                          sliding window (a ring buffer);
+                                          int8 codes with
+                                          ``kv_dtype="int8"``
+          ks, vs (L, B, S, K, 1)          the int8 cache's float32 scale
+                                          of each (token, KV head) row,
+                                          initialised to 1 (int8 only)
   audio:  xk, xv (L, B, S_enc, K, hd)     each decoder layer's
                                           cross-attention K/V over the
                                           encoder's output (S_enc
@@ -41,6 +46,15 @@ them per sequence at the config's ``capacity_factor``, a decode step the
 whole batch as one group at ``max(capacity_factor, 2.0)``; ``dispatch``
 ("einsum", the default, or "sort") picks the layer's dispatch.
 
+The int8 KV cache (``init_cache(..., kv_dtype="int8")``) is the
+reference's: the self-attention K/V of the dense, MoE and audio families
+as int8 codes with their scales, each decode step quantizing its token's
+K and V (``attention._quant_kv``) and the flash kernel reading codes and
+scales as they are.  The audio family's cross K/V and the hybrid's
+``ak``/``av`` stay float32, and the SSM family ignores the option.
+:func:`prefill` builds a float cache, as the reference's does: the int8
+cache is reached through :func:`init_cache` and :func:`decode_step`.
+
 The audio family's prefill takes the encoder's input, frame embeddings
 ``enc_frames`` (B, S_enc, D): the encoder runs once, in prefill, and
 each decode step reads its K/V from ``xk``/``xv``.
@@ -65,13 +79,19 @@ def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
 
 def init_cache(params: LanguageModel, cfg: ArchConfig, batch: int,
                max_len: Optional[int] = None,
-               enc_len: Optional[int] = None) -> Cache:
+               enc_len: Optional[int] = None,
+               kv_dtype: Optional[str] = None) -> Cache:
     """An empty cache of ``batch`` sequences on the model's device.  The
     K/V of the dense family and of the hybrid's shared block hold
     ``max_len`` tokens (the window under sliding-window attention); the
     audio family's cross K/V hold ``enc_len`` frames; the recurrent
     states do not grow with the sequence, and the SSM family ignores
-    ``max_len``."""
+    ``max_len``.  ``kv_dtype="int8"``: the dense, MoE and audio
+    self-attention K/V as int8 with float32 scales ``ks``/``vs`` of ones,
+    as the reference's; every other cache entry as without it."""
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"init_cache: kv_dtype must be None or 'int8', "
+                         f"got {kv_dtype!r}")
     dims = dims_from_params(params, cfg)   # raises for unported families
     dev, dtype = params.embed.device, params.embed.dtype
     L, D = cfg.n_layers, cfg.d_model
@@ -92,8 +112,13 @@ def init_cache(params: LanguageModel, cfg: ArchConfig, batch: int,
         c["xk"] = zeros(L, batch, enc_len, dims.K, dims.hd, dtype=dtype)
         c["xv"] = zeros(L, batch, enc_len, dims.K, dims.hd, dtype=dtype)
     if cfg.family in (DENSE, MOE, AUDIO):
-        c["k"] = zeros(L, batch, S, dims.K, dims.hd, dtype=dtype)
-        c["v"] = zeros(L, batch, S, dims.K, dims.hd, dtype=dtype)
+        kvd = torch.int8 if kv_dtype == "int8" else dtype
+        c["k"] = zeros(L, batch, S, dims.K, dims.hd, dtype=kvd)
+        c["v"] = zeros(L, batch, S, dims.K, dims.hd, dtype=kvd)
+        if kv_dtype == "int8":
+            c["ks"] = torch.ones((L, batch, S, dims.K, 1),
+                                 dtype=torch.float32, device=dev)
+            c["vs"] = torch.ones_like(c["ks"])
         return c
     if cfg.family == HYBRID:
         d_in = cfg.ssm_expand * D
@@ -206,14 +231,16 @@ def decode_step(params: LanguageModel, cfg: ArchConfig, cache: Cache,
                 tokens: torch.Tensor, *, dispatch: str = "einsum"
                 ) -> Tuple[torch.Tensor, Cache]:
     """tokens (B, 1) int.  Returns (logits (B, V), new cache); the dense,
-    MoE, audio and hybrid caches are updated in place."""
+    MoE, audio and hybrid caches are updated in place, an int8 cache's
+    scales ``ks``/``vs`` with its codes."""
     x = _embed(params, cfg, tokens)
     new = dict(cache)
     if cfg.family in (DENSE, MOE, AUDIO):
         cf = max(cfg.capacity_factor, 2.0)
-        cross = ("xk", "xv") if cfg.family == AUDIO else ()
+        keys = ("k", "v", *(("xk", "xv") if cfg.family == AUDIO else ()),
+                *(("ks", "vs") if "ks" in cache else ()))
         for i, layer in enumerate(params.layers):
-            state = {k: cache[k][i] for k in ("k", "v", *cross)}
+            state = {k: cache[k][i] for k in keys}
             x, _ = layer(x, state=dict(state, len=cache["len"]),
                          dispatch=dispatch, capacity_factor=cf)
     elif cfg.family == HYBRID:

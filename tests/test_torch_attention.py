@@ -268,13 +268,3 @@ def test_decode_attention_matches_jax(window, cur):
     scaled_close(gk, wk)
     scaled_close(gv, wv)
     assert gk is tk and gv is tv   # in place
-
-
-def test_decode_attention_int8_cache_is_not_ported():
-    p = torch_params(attn_params(0, 16, 2, 2, 8))
-    kc = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="int8"):
-        tattn.decode_attention(p, torch.zeros((1, 1, 16)), kc, kc,
-                               torch.tensor(0, dtype=torch.int32),
-                               n_heads=2, n_kv=2, hd=8, rope_theta=1e4,
-                               kv_scales=(kc, kc))

@@ -706,3 +706,134 @@ def test_decode_attention_full_cache_on_gpu_matches_cpu(cuda_device, cur):
     cpu = tattn.decode_attention(p, x, kc.clone(), vc.clone(), cur_len, **kw)
     for g, c in zip(gpu, cpu):
         torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
+
+
+def int8_inputs(B, Sq, Skv, H, K, hd, seed):
+    """q and an int8 K/V cache with its scales, the K/V quantized by the
+    port's _quant_kv from seeded float32 values."""
+    q, k, v = flash_inputs(B, Sq, Skv, H, K, hd, seed)
+    (k8, ks), (v8, vs) = tattn._quant_kv(k), tattn._quant_kv(v)
+    return q, k8, v8, ks, vs
+
+
+# the int8 decode instance: (B, Sq, Skv, H, K, hd, causal, window,
+# kv_len).  stablelm-3b (hd 80), mixtral-8x7b (hd 128 GQA), seamless's
+# decoder (hd 64) and granite-20b's MQA (48 over 1 head of 128) at the
+# serve cache's 1056 slots with 1025 valid and full; Sq 1 to 4 under
+# causal and window masks; a device kv_len of 0 (no key), 1, 64 and 65
+# (a tile's edge) and every slot; a head that ends inside a thread's
+# columns (7)
+INT8_CASES = [
+    (2, 1, 1056, 32, 32, 80, False, 0, 1025),
+    (2, 1, 1056, 32, 8, 128, False, 0, 1025),
+    (2, 1, 1056, 16, 16, 64, False, 0, 1025),
+    (2, 1, 1056, 48, 1, 128, False, 0, 1025),
+    (2, 1, 1056, 32, 32, 80, False, 0, 1056),
+    (2, 1, 1056, 48, 1, 128, False, 0, None),
+    (2, 2, 300, 8, 2, 64, True, 0, None),
+    (2, 3, 300, 8, 2, 80, True, 3, None),
+    (1, 4, 300, 48, 1, 128, True, 3, None),
+    (2, 4, 200, 4, 4, 80, False, 0, 150),
+    (2, 1, 1000, 8, 2, 64, False, 0, 0),
+    (2, 1, 1000, 8, 2, 80, False, 0, 1),
+    (2, 1, 1000, 8, 2, 128, False, 0, 64),
+    (2, 1, 1000, 8, 2, 80, False, 0, 65),
+    (2, 2, 1000, 32, 8, 128, False, 0, 64),
+    (2, 3, 130, 4, 4, 64, False, 0, 65),
+    (2, 1, 1000, 8, 2, 7, False, 0, 513),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,kv_len",
+                         INT8_CASES)
+def test_flash_int8_decode_vs_plain(cuda_device, B, Sq, Skv, H, K, hd,
+                                    causal, window, kv_len):
+    q, k8, v8, ks, vs = int8_inputs(B, Sq, Skv, H, K, hd, Sq * hd + Skv)
+    kw = dict(causal=causal, window=window)
+    n = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
+    want = flash_attention(q, k8, v8, kv_len=n, kv_scales=(ks, vs), **kw)
+    before = flash_fwd.launches
+    got = flash_attention(*(t.to(cuda_device) for t in (q, k8, v8)),
+                          kv_len=None if n is None else n.to(cuda_device),
+                          kv_scales=(ks.to(cuda_device), vs.to(cuda_device)),
+                          **kw)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    # the same as the float instance over the dequantized cache
+    deq = flash_attention(q.to(cuda_device), (k8.float() * ks).to(cuda_device),
+                          (v8.float() * vs).to(cuda_device),
+                          kv_len=None if n is None else n.to(cuda_device),
+                          **kw)
+    torch.testing.assert_close(got, deq, rtol=2e-5, atol=2e-5)
+
+
+def test_quant_kv_on_gpu_bitwise(cuda_device):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal((8, 33, 4, 80))
+                          * 10.0 ** rng.uniform(-8, 3, (8, 33, 4, 1))
+                          ).astype(np.float32))
+    x[0, 0, 0] = 0.0
+    x[1, 0, 0] = torch.arange(80) - 39.5    # amax 39.5: halves of codes
+    want = tattn._quant_kv(x)
+    got = tattn._quant_kv(x.to(cuda_device))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_flash_int8_wrapper_rejects(cuda_device):
+    q, k8, v8, ks, vs = (t.to(cuda_device)
+                         for t in int8_inputs(1, 1, 64, 4, 2, 16, 0))
+    before = flash_fwd.launches
+    flash_fwd(q, k8, v8, causal=False, kv_scales=(ks, vs))
+    assert flash_fwd.launches == before + 1
+    q5 = torch.zeros((1, 5, 4, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="decode"):    # Sq 5: no tile
+        flash_fwd(q5, k8, v8, causal=False, kv_scales=(ks, vs))
+    with pytest.raises(ValueError):                    # mis-shaped scales
+        flash_fwd(q, k8, v8, causal=False, kv_scales=(ks[:, :32], vs))
+    with pytest.raises(ValueError):
+        flash_fwd(q, k8, v8, causal=False,
+                  kv_scales=(ks.reshape(1, 64, 2), vs))
+    with pytest.raises(ValueError):                    # not contiguous
+        flash_fwd(q, k8, v8, causal=False, kv_scales=(
+            torch.ones((1, 2, 64, 1), device=cuda_device).transpose(1, 2),
+            vs))
+    with pytest.raises(TypeError):                     # float64 scales
+        flash_fwd(q, k8, v8, causal=False, kv_scales=(ks.double(), vs))
+    with pytest.raises(TypeError):                     # float K/V, scales
+        flash_fwd(q, k8.float(), v8.float(), causal=False,
+                  kv_scales=(ks, vs))
+    with pytest.raises(TypeError):                     # int8, no scales
+        flash_fwd(q, k8, v8, causal=False)
+    with pytest.raises(ValueError):
+        flash_fwd(q, k8, v8, causal=False, kv_scales=(ks.cpu(), vs))
+    assert flash_fwd.launches == before + 1
+
+
+def test_int8_decode_step_on_gpu_matches_cpu(cuda_device):
+    """reduced stablelm-3b decoding 12 tokens through an int8 cache of 8
+    slots (the last overwritten from step 8 on), on the card and on the
+    CPU from the same cache a step: logits within 1e-4 scaled, the new
+    slot's codes within 1."""
+    from repro_torch.models import decode_step, init_cache
+    cfg = reduced(get_config("stablelm-3b"))
+    model = init_params(cfg, 0)
+    gmodel = init_params(cfg, 0, device=cuda_device)
+    gmodel.load_state_dict(model.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)))
+    cache = init_cache(model, cfg, 2, 8, kv_dtype="int8")
+    for t in range(12):
+        gl, gc = decode_step(gmodel, cfg,
+                             {k: v.to(cuda_device) for k, v in cache.items()},
+                             toks[:, t:t + 1].to(cuda_device))
+        torch.cuda.synchronize()
+        cl, cache = decode_step(model, cfg, cache, toks[:, t:t + 1])
+        err = float((gl.cpu() - cl).abs().max())
+        assert err <= 1e-4 * max(1.0, float(cl.abs().max())), (t, err)
+        slot = min(t, 7)
+        for k in ("k", "v"):
+            d = (gc[k][:, :, slot].cpu().int() - cache[k][:, :, slot].int())
+            assert int(d.abs().max()) <= 1, (t, k)
