@@ -19,9 +19,12 @@ self-attention, decoder self-attention, cross-attention in prefill, and
 the decoder's two decode calls, with a partial-tile cross-attention and
 a cross decode over 1003 frames checked too; and the decode
 configuration's int8 instance over an int8 cache of ``_quant_kv`` codes
-and scales at stablelm-3b's, mixtral-8x7b's and seamless's decoder
-shapes, beside its byte bound, the float instance over the dequantized
-copy and dequantize + SDPA), paged decode attention at stablelm-3b's decode and mixtral-8x7b's GQA shape
+and scales at stablelm-3b's, mixtral-8x7b's, seamless's decoder and
+granite-20b's MQA shapes, bitwise the float instance over the
+dequantized copy at the same key splits, beside its byte bound, its
+time before its ring, that float instance and dequantize + SDPA),
+paged decode attention at stablelm-3b's decode and mixtral-8x7b's GQA
+shape
 (timed; also against flash attention over the same tokens held
 contiguously), granite-20b's MQA shape and pages of 16 and 12 tokens.
 Then it drives the port's main paths through their entry points.  The
@@ -1049,7 +1052,8 @@ def flash_kernel_phase(card: dict, dev) -> dict:
 INT8_FLASH = (("stablelm-3b", 32, 32, 80, 1025, True),
               ("stablelm-3b kv_len 1055", 32, 32, 80, 1055, True),
               ("mixtral-8x7b", 32, 8, 128, 1025, True),
-              ("seamless decoder self", 16, 16, 64, 1025, True))
+              ("seamless decoder self", 16, 16, 64, 1025, True),
+              ("granite-20b (MQA)", 48, 1, 128, 1025, True))
 
 
 def flash_int8_phase(card: dict, dev) -> dict:
@@ -1060,11 +1064,14 @@ def flash_int8_phase(card: dict, dev) -> dict:
     (device time) beside its byte bound, the plain version, the float32
     decode instance over the dequantized copy, and a yardstick of two
     torch calls, dequantize then scaled_dot_product_attention (no one
-    torch call reads int8 K/V with scales: library_ms is None)."""
+    torch call reads int8 K/V with scales: library_ms is None).  It must
+    be bitwise the float32 instance over the dequantized copy launched
+    with the same key splits."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_chunked_ref, flash_fwd)
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models.attention import _quant_kv
     B, S_max = 8, 1056
     gen = torch.Generator(dev).manual_seed(35)
@@ -1101,10 +1108,11 @@ def flash_int8_phase(card: dict, dev) -> dict:
         check(err <= bound, f"flash int8 {case}: max_abs_err vs plain {err} "
               f"> {bound}")
         kd, vd = k8.float() * ks, v8.float() * vs    # the dequantized copy
-        f_err = float((fold(flash_fwd(q, kd, vd, causal=False, kv_len=n_dev))
+        n_split = fk.int8_decode_splits(B * K, G, S_max, fk._sm_count(0))
+        f_err = float((fold(fk._launch(q, kd, vd, False, 0, n_dev, n_split))
                        - got).abs().max())
-        check(f_err <= bound, f"flash int8 {case}: {f_err} from the float "
-              f"instance over the dequantized copy")
+        check(f_err == 0, f"flash int8 {case}: {f_err} from the float "
+              f"instance over the dequantized copy at {n_split} splits")
         del want, got
         shape = (f"(B {B}, Sq 1, Skv {S_max}, H {H}, K {K}, hd {hd}, device "
                  f"kv_len {n})")
@@ -1127,8 +1135,9 @@ def flash_int8_phase(card: dict, dev) -> dict:
         del kd, vd
         log(f"flash_fwd int8 decode {case} {shape}: max_abs_err vs plain "
             f"{err:.3e} (tol {FLASH_TOL} x max(1, |plain|)), vs the float "
-            f"instance over the dequantized copy {f_err:.3e}; {ms:.4f} ms on "
-            f"the device (back-to-back calls {call_ms:.4f} ms), bound "
+            f"instance over the dequantized copy at {n_split} splits "
+            f"{f_err:.3e} (bitwise required); {ms:.4f} ms on the device "
+            f"(back-to-back calls {call_ms:.4f} ms), bound "
             f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} "
             f"GFLOP; {nbytes / ms / 1e9:.3f} TB/s achieved, "
             f"{b_ms / ms:.1%} of the bound), plain {plain_ms:.3f} ms, float32 "
@@ -1141,7 +1150,7 @@ def flash_int8_phase(card: dict, dev) -> dict:
         out[case] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                          library_ms=None, float_ms=float_ms,
-                         yardstick_ms=yard_ms, launches=0)
+                         yardstick_ms=yard_ms, n_split=n_split, launches=0)
     return out
 
 

@@ -78,23 +78,41 @@
 //     rows at once).  A split whose tiles lie past kv_len loads nothing
 //     and joins both syncs with m = NEG_INF, l = 0.
 //     One launch (cudaLaunchKernelEx with a cluster dimension): no second
-//     merge kernel, no atomics.  Registers hold the keys in flight, not a
-//     ring of shared-memory tiles: a cp.async ring of three 64-key stages,
-//     with its arithmetic taken out, streamed slower than these loads at
-//     one query head a KV head (PERF.md, section 6).
+//     merge kernel, no atomics.  The float32 instance holds the keys in
+//     flight in registers, not in a ring of shared-memory tiles: a
+//     cp.async ring of three 64-key stages, with its arithmetic taken out,
+//     streamed slower than these loads at one query head a KV head
+//     (PERF.md, section 6).
 //   * decode over the int8 KV cache (entry flash_fwd_decode_i8): the same
 //     configuration, instanced for int8 K/V with one float32 scale a row
 //     (token, KV head) in ks, vs (B, Skv, K, 1), the reference's
-//     _quant_kv layout.  A lane loads the codes of columns lane + 32 j of
-//     the step's 8 keys (one byte each: a warp's row is one 32-byte
-//     sector, coalesced but short) and each key's two scales (one float,
-//     the same address for every lane), and dequantizes in registers,
+//     _quant_kv layout.  Each warp keeps its keys and its lanes' columns,
+//     but copies its steps into a ring of its own in shared memory
+//     (kRingStages = 4 steps a warp) by cp.async and holds the next three
+//     in flight while it scores one, at one row as at eight: at a byte a
+//     code a step is short (1,344 bytes at hd 80), so loads a lane issues
+//     for itself, a byte a column, leave a warp too few bytes in flight
+//     to stream, and registers cannot hold more steps.  A step's 16 rows
+//     of codes go 16 bytes a cp.async where hd and the addresses of k and
+//     v allow, else 4 (kernel.py's decode_copy_bytes picks it on the
+//     host); where none divides hd (hd 7) the lanes load the codes a byte
+//     each and store them into the slot themselves.  Each scale is one
+//     4-byte copy.  A lane's share of the copies is fixed once (RingCopy).
+//     A warp waits on its own copy groups, then __syncwarp; no CTA
+//     barrier before the merge.  It dequantizes from the slot,
 //     float(code) * scale, one rounding as the reference's
-//     k_cache.astype(f32) * ksc, before the same FMAs; no float copy of
-//     the cache is made.  Keys past the valid length load neither codes
-//     nor scales.  The next step's keys are held as loaded (codes), so
-//     the registers in flight are no more than the float instance's.
-//     The tile configuration takes no int8 (kernel.py raises for Sq > 4).
+//     k_cache.astype(f32) * ksc, the code made a float by an integer xor
+//     and a float subtraction, not a conversion (code_f32), K's 8 rows
+//     for every row's score and then V's for the updates (never both in
+//     registers), and runs the float32 instance's arithmetic
+//     (step_score, step_update), so it is bitwise that instance over the
+//     dequantized copy at the same n_split.  No float copy of the cache
+//     is made; keys past the valid length are zero-filled and read
+//     nothing.  Its instances are bounded for 2 CTAs an SM up to 4 rows,
+//     1 at 8 (kDecBlocks), and its one-row passes take more key splits
+//     than the float instance's (kernel.py's int8_decode_splits); the
+//     ring takes 43,008 bytes a CTA at hd 80 and 67,584 at hd 128.  The
+//     tile configuration takes no int8 (kernel.py raises for Sq > 4).
 // Both take the same key range [lo, hi) from the masks, so KV tiles no
 // query can reach are never loaded (the TPU kernel's block skip), and both
 // apply the same mask function to every score.  No library.  One launch
@@ -126,10 +144,14 @@
 // CTAs the grid needs to stream at that rate come from the key splits.
 // The int8 instance reads hd + 4 bytes a K or V row (codes and a scale):
 // at kv_len 1025, with q and o, 44.2 MB (0.0132 ms) for stablelm-3b,
-// 17.6 MB (0.0052 ms) for mixtral-8x7b and 17.9 MB (0.0053 ms) for
-// seamless's decoder self-attention, near a launch's own latency.  Its
-// FMAs are the float instance's, so at that byte rate they take about
-// four times their share above, 10% (G 1) to 40% (G 4) of the rate.
+// 17.6 MB (0.0052 ms) for mixtral-8x7b, 17.9 MB (0.0053 ms) for
+// seamless's decoder self-attention and 2.6 MB (0.0008 ms) for
+// granite-20b's MQA group of 48, near or below a launch's own latency.
+// Its FMAs are the float instance's, so at that byte rate they take about
+// four times their share above, 10% (G 1) to 40% (G 4) of the rate, and
+// its dequantization (a load, a convert and a product a code from shared
+// memory) about as many instructions again: at one row it has to keep
+// both the copies and the arithmetic of 16 warps an SM going.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -179,22 +201,21 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Asynchronous global -> shared copies; `in` false writes zeros and reads
-// nothing (src-size 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
+// An asynchronous copy of N bytes from global memory to the shared-window
+// address dst (smem_u32): 16 bypass L1 (.cg), 8 and 4 pass through it;
+// `in` false writes zeros and reads nothing (src-size 0).
+template <int N>
+__device__ __forceinline__ void cp_async_to(uint32_t dst, const void* src,
+                                            bool in) {
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(N), "r"(in ? N : 0)
+                 : "memory");
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -289,16 +310,18 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
       const int j = c / CPR, x = (c - j * CPR) * 4, row = row0 + j;
       const bool in = row < end;
-      if (x < hd) cp_async16(dst + j * HDP + x, in ? src + row * step + x : src,
-                             in);
+      if (x < hd)
+        cp_async_to<16>(smem_u32(dst + j * HDP + x),
+                        in ? src + row * step + x : src, in);
     }
   } else {
 #pragma unroll 4
     for (int c = threadIdx.x; c < ROWS * HDP; c += NT) {
       const int j = c / HDP, x = c - j * HDP, row = row0 + j;
       const bool in = row < end;
-      if (x < hd) cp_async4(dst + j * HDP + x, in ? src + row * step + x : src,
-                            in);
+      if (x < hd)
+        cp_async_to<4>(smem_u32(dst + j * HDP + x),
+                       in ? src + row * step + x : src, in);
     }
   }
 }
@@ -627,63 +650,228 @@ __device__ __forceinline__ float reduce_scatter8(float (&x)[kStepKeys],
   return s;
 }
 
-// A warp's step in registers as loaded: keys k0..k0 + 7 of K and V,
-// columns lane + 32 j of each, as stored (float32, or int8 codes), and for
-// int8 each key's two scales.
-template <int DJ, typename KV>
+// The step's arithmetic of one query row, shared by the float32 and int8
+// instances so that both do the same float operations in the same order:
+// the score of the lane's key sk, q . k over the lane's columns
+// reduce-scattered across the warp, ...
+template <int DJ>
+__device__ __forceinline__ float step_score(const float (&qv)[DJ],
+                                            const float (&kk)[kStepKeys][DJ],
+                                            int lane) {
+  float part[kStepKeys];
+#pragma unroll
+  for (int u = 0; u < kStepKeys; ++u) {
+    float a = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) a = fmaf(qv[j], kk[u][j], a);
+    part[u] = a;
+  }
+  return reduce_scatter8(part, lane);
+}
+
+// ... and the online softmax over the step's keys in log2 units, a lane
+// holding key sk's score s: masked scores are kNegInf and their
+// exponentials selected to 0; acc += p v with each key's p by a shuffle.
+template <int DJ>
+__device__ __forceinline__ void step_update(float s, bool vis, float sl2,
+                                            float& m, float& l,
+                                            float (&acc)[DJ],
+                                            const float (&vv)[kStepKeys][DJ]) {
+  const float x = vis ? s * sl2 : kNegInf;
+  float mx = x;
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+  const float m_new = fmaxf(m, mx);
+  const float p = vis ? exp2_approx(x - m_new) : 0.f;  // select
+  float sum = p;
+  sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+  const float corr = exp2_approx(m - m_new);
+  l = l * corr + sum;
+  m = m_new;
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) acc[j] *= corr;
+#pragma unroll
+  for (int u = 0; u < kStepKeys; ++u) {
+    const float pu = __shfl_sync(0xffffffffu, p, u << 2);
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[j] = fmaf(pu, vv[u][j], acc[j]);
+  }
+}
+
+// A warp's float32 step in registers: keys k0..k0 + 7 of K and V, columns
+// lane + 32 j of each.
+template <int DJ>
 struct StepRegs {
-  KV k[kStepKeys][DJ], v[kStepKeys][DJ];
-  float ks[kStepKeys], vs[kStepKeys];
+  float k[kStepKeys][DJ], v[kStepKeys][DJ];
 };
 
-template <typename KV>
-constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
-
-// Loads keys k0..k0 + 7; keys at or past `end` are 0 and load nothing,
-// neither codes nor scales.  An int8 key's scale is one float a token and
-// KV head (stride K floats a token), the same address for every lane.
-template <int DJ, typename KV>
-__device__ __forceinline__ void load_step(StepRegs<DJ, KV>& st, const KV* kb,
-                                          const KV* vb, const float* ksb,
-                                          const float* vsb, int64_t step,
-                                          int64_t sstep, int k0, int end,
-                                          int hd, int lane) {
+// Loads keys k0..k0 + 7; keys at or past `end` are 0 and load nothing.
+template <int DJ>
+__device__ __forceinline__ void load_step(StepRegs<DJ>& st, const float* kb,
+                                          const float* vb, int64_t step,
+                                          int k0, int end, int hd, int lane) {
 #pragma unroll
   for (int u = 0; u < kStepKeys; ++u) {
     const bool in = k0 + u < end;
-    if constexpr (kInt8<KV>) {
-      st.ks[u] = in ? ksb[(k0 + u) * sstep] : 0.f;
-      st.vs[u] = in ? vsb[(k0 + u) * sstep] : 0.f;
-    }
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int col = lane + 32 * j;
       const int64_t at = (k0 + u) * step + col;
-      st.k[u][j] = in && col < hd ? kb[at] : KV(0);
-      st.v[u][j] = in && col < hd ? vb[at] : KV(0);
+      st.k[u][j] = in && col < hd ? kb[at] : 0.f;
+      st.v[u][j] = in && col < hd ? vb[at] : 0.f;
     }
   }
 }
 
-// The step's K and V as float32: int8 codes times their key's scale, one
-// rounding, as the reference's k_cache.astype(f32) * ksc; float32 as is.
-template <int DJ, typename KV>
-__device__ __forceinline__ void dequant_step(const StepRegs<DJ, KV>& st,
-                                             float (&kk)[kStepKeys][DJ],
-                                             float (&vv)[kStepKeys][DJ]) {
+template <typename KV>
+constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+
+// The int8 instance's ring: kRingStages slots a warp, each one step, the
+// 8 K and then the 8 V rows of codes (hd bytes each at a stride of hd
+// rounded up to 16) and then their 16 float32 scales, K's first.
+constexpr int kRingStages = 4;
+
+__host__ __device__ __forceinline__ int ring_row(int hd) {
+  return (hd + 15) & ~15;
+}
+
+__host__ __device__ __forceinline__ int ring_slot(int hd) {
+  return 2 * kStepKeys * (ring_row(hd) + static_cast<int>(sizeof(float)));
+}
+
+__host__ __device__ __forceinline__ int ring_bytes(int hd) {
+  return kDecWarps * kRingStages * ring_slot(hd);
+}
+
+// A lane's share of copying each step into its warp's ring, fixed for the
+// whole loop: chunk x (`copy` bytes; hd / copy <= 32 chunks a row) of
+// rows r0, r0 + rpp, ... of the step's 16 (lanes past them copy none),
+// and for lanes 0..15 one scale, K's first.  Addresses are of key 0 and
+// slot 0.
+struct RingCopy {
+  const int8_t* k;  // the chunk's K and V codes
+  const int8_t* v;
+  const float* s;   // the lane's scale
+  uint32_t dst;     // the chunk of row r0 in the ring (shared window)
+  uint32_t sdst;    // the scale in the ring
+  int r0, rpp;
+};
+
+__device__ __forceinline__ RingCopy ring_copy(uint32_t ring,
+                                              const int8_t* kb,
+                                              const int8_t* vb,
+                                              const float* ksb,
+                                              const float* vsb, int64_t sstep,
+                                              int hd, int copy, int lane) {
+  const int rrow = ring_row(hd);
+  int x = 0, r0 = 2 * kStepKeys, rpp = 0;
+  if (copy > 1) {
+    const int cpr = hd / copy;
+    rpp = 32 / cpr;
+    r0 = lane / cpr;
+    x = (lane - r0 * cpr) * copy;
+    if (r0 >= rpp) r0 = 2 * kStepKeys;
+  }
+  return {kb + x, vb + x,
+          (lane < kStepKeys ? ksb : vsb) + (lane & (kStepKeys - 1)) * sstep,
+          ring + static_cast<uint32_t>(r0 * rrow + x),
+          ring + static_cast<uint32_t>(2 * kStepKeys * rrow + 4 * lane), r0,
+          rpp};
+}
+
+template <int N>
+__device__ __forceinline__ void copy_codes(const RingCopy& c, uint32_t slot,
+                                           int64_t step, int k0, int end,
+                                           int rrow) {
+  uint32_t dst = c.dst + slot;
+  for (int row = c.r0; row < 2 * kStepKeys;
+       row += c.rpp, dst += c.rpp * rrow) {
+    const int u = row & (kStepKeys - 1);
+    const bool in = k0 + u < end;
+    const int8_t* src = (row < kStepKeys ? c.k : c.v) + (k0 + u) * step;
+    cp_async_to<N>(dst, in ? src : c.k, in);
+  }
+}
+
+// Copies keys k0..k0 + 7 of K and V, codes and scales, into the ring slot
+// at byte `slot` of the ring (generic address `at`) by cp.async, committed
+// by the caller.  Where hd takes no 4-byte copy (copy 1) the lanes load
+// the codes a byte each and store them into the slot themselves.  Keys at
+// or past `end` are zero-filled and read nothing.
+__device__ __forceinline__ void copy_step(const RingCopy& c, int8_t* at,
+                                          uint32_t slot, int64_t step,
+                                          int64_t sstep, int k0, int end,
+                                          int hd, int copy, int lane) {
+  const int rrow = ring_row(hd);
+  if (lane < 2 * kStepKeys) {
+    const bool in = k0 + (lane & (kStepKeys - 1)) < end;
+    cp_async_to<4>(c.sdst + slot, in ? c.s + k0 * sstep : c.s, in);
+  }
+  switch (copy) {
+    case 16:
+      copy_codes<16>(c, slot, step, k0, end, rrow);
+      break;
+    case 4:
+      copy_codes<4>(c, slot, step, k0, end, rrow);
+      break;
+    default:
+      for (int row = 0; row < 2 * kStepKeys; ++row) {
+        const int u = row & (kStepKeys - 1);
+        const bool in = k0 + u < end;
+        const int8_t* src = (row < kStepKeys ? c.k : c.v) + (k0 + u) * step;
+        for (int x = lane; x < hd; x += 32)
+          at[row * rrow + x] = in ? src[x] : int8_t(0);
+      }
+  }
+}
+
+// float(c) for an int8 code c from its byte b, zero-extended, without a
+// conversion instruction (int to float runs at a quarter of the FMA rate
+// or less, and a code takes one a row it serves): b ^ 0x80 is c + 128,
+// 0 to 255, so b ^ 0x4B400080 is the float 1.5 * 2^23 + 128 + c exactly
+// (its unit in the last place is 1), and taking 1.5 * 2^23 + 128 away
+// again leaves c exactly.
+__device__ __forceinline__ float code_f32(uint32_t b) {
+  return __uint_as_float(b ^ 0x4B400080u) - 12583040.f;
+}
+
+// Rows base..base + 7 of a landed slot (K's at 0, V's at kStepKeys) as
+// float32: each code times its key's scale, one rounding, as the
+// reference's k_cache.astype(f32) * ksc; columns past hd (read from
+// within the slot) are 0, and only the last of a lane's DJ columns can
+// be past it (the instance serves 32 (DJ - 1) < hd <= 32 DJ).
+template <int DJ>
+__device__ __forceinline__ void dequant_rows(const int8_t* slot, int base,
+                                             int hd, int lane,
+                                             float (&x)[kStepKeys][DJ]) {
+  const int rrow = ring_row(hd);
+  const float4* sc =
+      reinterpret_cast<const float4*>(slot + 2 * kStepKeys * rrow) +
+      base / 4;
+  const float4 s0 = sc[0], s1 = sc[1];
+  const float scale[kStepKeys] = {s0.x, s0.y, s0.z, s0.w,
+                                  s1.x, s1.y, s1.z, s1.w};
 #pragma unroll
   for (int u = 0; u < kStepKeys; ++u)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      if constexpr (kInt8<KV>) {
-        kk[u][j] = static_cast<float>(st.k[u][j]) * st.ks[u];
-        vv[u][j] = static_cast<float>(st.v[u][j]) * st.vs[u];
-      } else {
-        kk[u][j] = static_cast<float>(st.k[u][j]);
-        vv[u][j] = static_cast<float>(st.v[u][j]);
-      }
+      const int col = lane + 32 * j;
+      const float code = code_f32(
+          reinterpret_cast<const uint8_t*>(slot)[(base + u) * rrow + col]);
+      x[u][j] = j < DJ - 1 || col < hd ? code * scale[u] : 0.f;
     }
 }
+
+// CTAs an SM that a decode instance's registers are bounded for: the
+// float32 ones hold their keys in flight in registers (2 CTAs at one row,
+// 1 above); the int8 ones hold theirs in the ring, 2 CTAs up to 4 rows
+// (4 at one row measured no faster), 1 at 8 rows (2 spill).
+template <int RMAX, typename KV>
+constexpr int kDecBlocks =
+    kInt8<KV> ? (RMAX == 8 ? 1 : 2) : (RMAX == 1 ? 2 : 1);
 
 // One cluster of n_split CTAs (gridDim.x = B K n_split, the cluster along
 // x) per (b, KV head) and pass of up to RMAX query rows (blockIdx.y): the
@@ -691,13 +879,13 @@ __device__ __forceinline__ void dequant_step(const StepRegs<DJ, KV>& st,
 // and every query row of the pass, row r = qp G + g for query qp of head
 // kvh G + g.  A lane holds head columns lane + 32 j, j < DJ.  KV: float
 // K/V, or int8 codes with their scales ks, vs (B, Skv, K, 1; null for
-// float).
+// float), copied `copy` bytes a cp.async into the ring (copy_step).
 template <int DJ, int RMAX, typename KV>
-__global__ void __launch_bounds__(kDecThreads, RMAX == 1 ? 2 : 1)
+__global__ void __launch_bounds__(kDecThreads, kDecBlocks<RMAX, KV>)
 flash_decode_kernel(const float* __restrict__ q, const KV* __restrict__ k,
                     const KV* __restrict__ v, const float* __restrict__ ks,
                     const float* __restrict__ vs, float* __restrict__ o,
-                    const int* __restrict__ kv_len, Shape sh) {
+                    const int* __restrict__ kv_len, Shape sh, int copy) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_split = static_cast<int>(cluster.num_blocks());
@@ -710,8 +898,10 @@ flash_decode_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   const int rows = min(R, RMAX);  // rows the shared memory is sized for
   const int row0 = blockIdx.y * RMAX, nr = min(RMAX, R - row0);
 
-  extern __shared__ float dsm[];
-  float* sAccW = dsm;                              // [warp][rows][hd]
+  // the int8 ring first, then each warp's (m, l, acc) and the CTA's
+  extern __shared__ __align__(16) float dsm[];
+  // [warp][rows][hd]
+  float* sAccW = dsm + (kInt8<KV> ? ring_bytes(hd) / 4 : 0);
   float* sAcc = sAccW + kDecWarps * rows * hd;     // [rows][hd]
   float* sMw = sAcc + rows * hd;                   // [warp][rows]
   float* sLw = sMw + kDecWarps * rows;
@@ -731,8 +921,6 @@ flash_decode_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   const int64_t row_kv = static_cast<int64_t>(b) * sh.Skv * sh.K + kvh;
   const KV* kb = k + row_kv * hd;
   const KV* vb = v + row_kv * hd;
-  const float* ksb = kInt8<KV> ? ks + row_kv : nullptr;  // stride K a token
-  const float* vsb = kInt8<KV> ? vs + row_kv : nullptr;
   const float sl2 = sh.scale * 1.4426950408889634f;  // scale * log2 e
   const int sk = (lane >> 2) & 7;  // the key whose score a lane ends with
   int qp[RMAX];
@@ -755,67 +943,82 @@ flash_decode_kernel(const float* __restrict__ q, const KV* __restrict__ k,
   }
 
   // the warps take the CTA's keys 8 at a time in turn, each its own online
-  // softmax and no barrier until the merge.  With 2 to 4 rows a warp's
-  // next 8 keys are in flight while it scores these (a row's arithmetic is
-  // short enough for the other warps' loads to cover, and 8 rows leave no
-  // registers for a second step)
-  constexpr bool kAhead = RMAX > 1 && RMAX <= 4;
+  // softmax and no barrier until the merge; every row of the instance in
+  // each step, so that the rows' chains interleave (a pass's rows past nr
+  // repeat its last one and are never stored)
   constexpr int kRound = kDecWarps * kStepKeys;
-  StepRegs<DJ, KV> cur;  // this step's keys as loaded
-  if (kAhead)
-    load_step(cur, kb, vb, ksb, vsb, k_step, sh.K, kfirst + warp * kStepKeys,
-              kend, hd, lane);
-  for (int k0 = kfirst + warp * kStepKeys; k0 < kend; k0 += kRound) {
-    StepRegs<DJ, KV> nxt;
-    if (kAhead)
-      load_step(nxt, kb, vb, ksb, vsb, k_step, sh.K, k0 + kRound, kend, hd,
-                lane);
-    else
-      load_step(cur, kb, vb, ksb, vsb, k_step, sh.K, k0, kend, hd, lane);
-    float kk[kStepKeys][DJ], vv[kStepKeys][DJ];
-    dequant_step(cur, kk, vv);
-    const bool vis_key = k0 + sk < kend;
-    // every row of the instance, so that the rows' chains interleave; a
-    // pass's rows past nr repeat its last one and are never stored
+  if constexpr (kInt8<KV>) {
+    // each warp's next kRingStages - 1 steps are in flight in its ring
+    // while it scores this one, at any number of rows
+    const int slot_bytes = ring_slot(hd);
+    int8_t* ring = reinterpret_cast<int8_t*>(dsm) +
+                   warp * kRingStages * slot_bytes;
+    const uint32_t ring_s = smem_u32(ring);
+    const RingCopy rc = ring_copy(ring_s, kb, vb, ks + row_kv, vs + row_kv,
+                                  sh.K, hd, copy, lane);
+    int k_in = kfirst + warp * kStepKeys;  // the next step to copy
 #pragma unroll
-    for (int r = 0; r < RMAX; ++r) {
-      float part[kStepKeys];
-#pragma unroll
-      for (int u = 0; u < kStepKeys; ++u) {
-        float a = 0.f;
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) a = fmaf(qv[r][j], kk[u][j], a);
-        part[u] = a;
-      }
-      const float s = reduce_scatter8(part, lane);
-      // the online softmax over the step's keys in log2 units, a lane
-      // holding key sk's score: masked scores are kNegInf and their
-      // exponentials selected to 0
-      const bool vis = vis_key && visible(qp[r], k0 + sk, sh.Sq, seq_k, sh);
-      const float x = vis ? s * sl2 : kNegInf;
-      float mx = x;
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-      const float m_new = fmaxf(m[r], mx);
-      const float p = vis ? exp2_approx(x - m_new) : 0.f;  // select
-      float sum = p;
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 8);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 16);
-      const float corr = exp2_approx(m[r] - m_new);
-      l[r] = l[r] * corr + sum;
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[r][j] *= corr;
-#pragma unroll
-      for (int u = 0; u < kStepKeys; ++u) {
-        const float pu = __shfl_sync(0xffffffffu, p, u << 2);
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[r][j] = fmaf(pu, vv[u][j], acc[r][j]);
-      }
+    for (int i = 0; i < kRingStages - 1; ++i, k_in += kRound) {
+      if (k_in < kend)
+        copy_step(rc, ring + i * slot_bytes, i * slot_bytes, k_step, sh.K,
+                  k_in, kend, hd, copy, lane);
+      cp_async_commit();
     }
-    if (kAhead) cur = nxt;
+    int stage = 0;
+    for (int k0 = kfirst + warp * kStepKeys; k0 < kend; k0 += kRound) {
+      __syncwarp();  // every lane is done with the slot copied into next
+      if (k_in < kend) {
+        const int back = (stage == 0 ? kRingStages - 1 : stage - 1) *
+                         slot_bytes;
+        copy_step(rc, ring + back, back, k_step, sh.K, k_in, kend, hd, copy,
+                  lane);
+      }
+      cp_async_commit();
+      k_in += kRound;
+      cp_async_wait<kRingStages - 1>();  // this lane's copies of the step
+      __syncwarp();                      // ... and every other lane's
+      const int8_t* slot = ring + stage * slot_bytes;
+      stage = stage + 1 == kRingStages ? 0 : stage + 1;
+      float s[RMAX];
+      {
+        float kk[kStepKeys][DJ];
+        dequant_rows(slot, 0, hd, lane, kk);
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) s[r] = step_score(qv[r], kk, lane);
+      }
+      float vv[kStepKeys][DJ];
+      dequant_rows(slot, kStepKeys, hd, lane, vv);
+      const bool vis_key = k0 + sk < kend;
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r)
+        step_update(s[r], vis_key && visible(qp[r], k0 + sk, sh.Sq, seq_k, sh),
+                    sl2, m[r], l[r], acc[r], vv);
+    }
+  } else {
+    // with 2 to 4 rows a warp's next 8 keys are in flight in registers
+    // while it scores these (a row's arithmetic is short enough for the
+    // other warps' loads to cover, and 8 rows leave no registers for a
+    // second step)
+    constexpr bool kAhead = RMAX > 1 && RMAX <= 4;
+    StepRegs<DJ> cur;  // this step's keys
+    if (kAhead)
+      load_step(cur, kb, vb, k_step, kfirst + warp * kStepKeys, kend, hd,
+                lane);
+    for (int k0 = kfirst + warp * kStepKeys; k0 < kend; k0 += kRound) {
+      StepRegs<DJ> nxt;
+      if (kAhead)
+        load_step(nxt, kb, vb, k_step, k0 + kRound, kend, hd, lane);
+      else
+        load_step(cur, kb, vb, k_step, k0, kend, hd, lane);
+      const bool vis_key = k0 + sk < kend;
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        const float s = step_score(qv[r], cur.k, lane);
+        step_update(s, vis_key && visible(qp[r], k0 + sk, sh.Sq, seq_k, sh),
+                    sl2, m[r], l[r], acc[r], cur.v);
+      }
+      if (kAhead) cur = nxt;
+    }
   }
 
   // each warp's (m, l, acc), then the CTA's
@@ -903,12 +1106,21 @@ int launch_tile(const float* q, const float* k, const float* v, float* o,
 template <int DJ, int RMAX, typename KV>
 int launch_decode(const float* q, const KV* k, const KV* v, const float* ks,
                   const float* vs, float* o, const int* kv_len,
-                  const Shape& sh, int n_split, cudaStream_t stream) {
+                  const Shape& sh, int n_split, int copy,
+                  cudaStream_t stream) {
   const int R = sh.H / sh.K * sh.Sq;
-  // at most 37,440 bytes (8 rows of 128), under the 48 KB a launch may
-  // take without raising the kernel's limit
+  // the float32 instances take at most 37,440 bytes (8 rows of 128),
+  // under the 48 KB a launch may take without raising the kernel's limit;
+  // the int8 ones add their ring (up to 67,584 bytes at hd 128)
   const size_t smem =
-      sizeof(float) * dec_smem_floats(sh.hd, R < RMAX ? R : RMAX);
+      sizeof(float) * dec_smem_floats(sh.hd, R < RMAX ? R : RMAX) +
+      (kInt8<KV> ? ring_bytes(sh.hd) : 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_kernel<DJ, RMAX, KV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = n_split;
@@ -923,7 +1135,7 @@ int launch_decode(const float* q, const KV* k, const KV* v, const float* ks,
   cfg.numAttrs = 1;
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, flash_decode_kernel<DJ, RMAX, KV>, q, k, v,
-                         ks, vs, o, kv_len, sh);
+                         ks, vs, o, kv_len, sh, copy);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -935,20 +1147,20 @@ template <int RMAX, typename KV>
 int launch_decode_rows(const float* q, const KV* k, const KV* v,
                        const float* ks, const float* vs, float* o,
                        const int* kv_len, const Shape& sh, int n_split,
-                       cudaStream_t stream) {
+                       int copy, cudaStream_t stream) {
   switch ((sh.hd + 31) / 32) {
     case 1:
       return launch_decode<1, RMAX>(q, k, v, ks, vs, o, kv_len, sh, n_split,
-                                    stream);
+                                    copy, stream);
     case 2:
       return launch_decode<2, RMAX>(q, k, v, ks, vs, o, kv_len, sh, n_split,
-                                    stream);
+                                    copy, stream);
     case 3:
       return launch_decode<3, RMAX>(q, k, v, ks, vs, o, kv_len, sh, n_split,
-                                    stream);
+                                    copy, stream);
     default:
       return launch_decode<4, RMAX>(q, k, v, ks, vs, o, kv_len, sh, n_split,
-                                    stream);
+                                    copy, stream);
   }
 }
 
@@ -956,15 +1168,15 @@ template <typename KV>
 int launch_decode_any(const float* q, const KV* k, const KV* v,
                       const float* ks, const float* vs, float* o,
                       const int* kv_len, const Shape& sh, int n_split,
-                      cudaStream_t stream) {
+                      int copy, cudaStream_t stream) {
   const int rows = sh.H / sh.K * sh.Sq;  // query rows a (b, KV head) serves
   if (rows == 1)
     return launch_decode_rows<1>(q, k, v, ks, vs, o, kv_len, sh, n_split,
-                                 stream);
+                                 copy, stream);
   if (rows <= 4)
     return launch_decode_rows<4>(q, k, v, ks, vs, o, kv_len, sh, n_split,
-                                 stream);
-  return launch_decode_rows<8>(q, k, v, ks, vs, o, kv_len, sh, n_split,
+                                 copy, stream);
+  return launch_decode_rows<8>(q, k, v, ks, vs, o, kv_len, sh, n_split, copy,
                                stream);
 }
 
@@ -1000,7 +1212,7 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
   auto st = static_cast<cudaStream_t>(stream);
   if (Sq <= kDecodeMaxSq)
     return launch_decode_any<float>(qf, kf, vf, nullptr, nullptr, of, len,
-                                    sh, n_split, st);
+                                    sh, n_split, 0, st);
   switch ((hd + 7) / 8) {
     case 1: return launch_tile<8>(qf, kf, vf, of, len, sh, st);
     case 2: return launch_tile<16>(qf, kf, vf, of, len, sh, st);
@@ -1023,20 +1235,26 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
 
 // The int8 decode instance: k, v (B, Skv, K, hd) int8 codes and ks, vs
 // (B, Skv, K, 1) float32 scales, all contiguous; Sq <= 4 (the decode
-// configuration alone); the rest as flash_fwd_f32.
+// configuration alone); `copy`, the bytes of a code copy: 16 or 4 where
+// they divide hd and the addresses of k and v, else 1 (kernel.py's
+// decode_copy_bytes); the rest as flash_fwd_f32.
 int flash_fwd_decode_i8(const void* q, const void* k, const void* v,
                         const void* ks, const void* vs, void* o,
                         const void* kv_len, int B, int Sq, int Skv, int H,
                         int K, int hd, int seq_k, int causal, int window,
-                        int n_split, float scale, void* stream) {
-  if (bad_shape(B, Sq, Skv, H, K, hd, window, n_split) || Sq > kDecodeMaxSq)
+                        int n_split, int copy, float scale, void* stream) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(k) |
+                       reinterpret_cast<uintptr_t>(v);
+  if (bad_shape(B, Sq, Skv, H, K, hd, window, n_split) || Sq > kDecodeMaxSq ||
+      (copy != 1 && copy != 4 && copy != 16) || hd % copy ||
+      at % copy)
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{B, Sq, Skv, H, K, hd, seq_k, causal != 0, window, scale};
   return launch_decode_any<int8_t>(
       static_cast<const float*>(q), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<float*>(o),
-      static_cast<const int*>(kv_len), sh, n_split,
+      static_cast<const int*>(kv_len), sh, n_split, copy,
       static_cast<cudaStream_t>(stream));
 }
 

@@ -1,6 +1,7 @@
 """Device times of K4's decode configuration at every key split count, on
-a GPU: the evidence for ``kernel.decode_splits``, kept out of
-``chip_smoke.py`` so that the smoke does not pay for it.
+a GPU: the evidence for ``kernel.decode_splits`` and
+``kernel.int8_decode_splits``, kept out of ``chip_smoke.py`` so that
+the smoke does not pay for it.
 
     PYTHONPATH=src python -m repro_torch.kernels.flash_attention.decode_sweep
 
@@ -12,8 +13,11 @@ back-to-back launches) at 1, 2, 4 and 8 splits, each against its byte
 bound, every split count's output held to the rule's within 2e-5 x
 max(1, |o|).  It then times mixtral-8x7b's GQA call (32 query heads over
 8 KV heads: the 4-row instance) against the same K and V read by 8 query
-heads (the 1-row instance), and prints the registers ptxas gave each
-decode instance and the CTAs of 256 threads those leave an SM.
+heads (the 1-row instance).  The int8 instance follows, the same way, at
+``chip_smoke.py``'s ``INT8_FLASH`` shapes (K/V quantized symmetric
+int8 per row, hd + 4 bytes a K or V row), against its own rule.  Last,
+the registers ptxas gave each decode instance and the CTAs of 256
+threads those leave an SM.
 """
 from __future__ import annotations
 
@@ -35,6 +39,12 @@ SHAPES = (("stablelm-3b", 32, 32, 80, S_MAX, KV_LEN),
           ("seamless-m4t-large-v2 decoder self", 16, 16, 64, S_MAX, KV_LEN),
           ("seamless-m4t-large-v2 cross", 16, 16, 64, 1024, None),
           ("granite-20b (MQA)", 48, 1, 128, S_MAX, KV_LEN))
+# the int8 instance: (what, H, K, hd, valid length), over S_MAX slots
+INT8_SHAPES = (("stablelm-3b", 32, 32, 80, KV_LEN),
+               ("stablelm-3b kv_len 1055", 32, 32, 80, 1055),
+               ("mixtral-8x7b", 32, 8, 128, KV_LEN),
+               ("seamless-m4t-large-v2 decoder self", 16, 16, 64, KV_LEN),
+               ("granite-20b (MQA)", 48, 1, 128, KV_LEN))
 
 
 def device_ms(fn, calls: int = 20) -> float:
@@ -55,16 +65,52 @@ def device_ms(fn, calls: int = 20) -> float:
     raise RuntimeError("torch.profiler saw no device time")
 
 
+def quantize(x):
+    """Symmetric int8 codes of x (..., hd) and their float32 scales
+    (..., 1): amax / 127 a row, rounded half to even and clamped."""
+    scale = x.abs().amax(-1, keepdim=True).clamp_min(1e-6) / 127
+    return torch.round(x / scale).clamp(-127, 127).to(torch.int8), scale
+
+
 def registers() -> list:
-    """(head columns a lane / 32, rows, registers) of each decode
-    instance, from ptxas's log of this process's build."""
+    """(K/V type, head columns a lane / 32, rows, registers) of each
+    decode instance, from ptxas's log of this process's build."""
     log = cuda_build.BUILD_LOG.get("flash_fwd", "")
     out = []
     for m in re.finditer(r"Compiling entry function '\S*flash_decode_kernel"
-                         r"ILi(\d+)ELi(\d+)E\S*'.*?Used (\d+) registers",
-                         log, re.S):
-        out.append(tuple(int(x) for x in m.groups()))
+                         r"ILi(\d+)ELi(\d+)E([fa])E\S*'.*?Used (\d+) "
+                         r"registers", log, re.S):
+        dj, rows, kv, regs = m.groups()
+        out.append(("int8" if kv == "a" else "float32", int(dj), int(rows),
+                    int(regs)))
     return sorted(set(out))
+
+
+def sweep(what: str, shape: str, q, k, v, kv_len, rule: int, nbytes: int,
+          kv_scales=None) -> None:
+    """Times one decode call at 1, 2, 4 and 8 splits, each held to the
+    ``rule`` splits' output, and prints them against the byte bound."""
+    skv = k.shape[1]
+    bound = nbytes / HBM * 1e3
+    want = fk._launch(q, k, v, False, 0, kv_len, rule, kv_scales)
+    scale = max(1.0, float(want.abs().max()))
+    times = []
+    for split in (1, 2, 4, 8):
+        if split > -(-skv // fk.TILE):
+            continue
+
+        def run(s=split):
+            return fk._launch(q, k, v, False, 0, kv_len, s, kv_scales)
+
+        err = float((run() - want).abs().max())
+        if err > TOL * scale:
+            raise AssertionError(f"{what}: {split} splits differ from "
+                                 f"{rule} by {err}")
+        ms = device_ms(run)
+        times.append(f"{split} {ms:.4f} ms ({bound / ms:.0%})")
+    print(f"decode_sweep {what} {shape}: bound {bound:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB at {HBM / 1e12:.2f} TB/s); rule {rule} "
+          f"splits; at " + ", ".join(times), flush=True)
 
 
 def main() -> None:
@@ -87,31 +133,24 @@ def main() -> None:
         kv_len = None if n is None else torch.tensor(
             n, dtype=torch.int32, device=dev)
         valid = skv if n is None else n
-        nbytes = 4 * (2 * B * H * hd + 2 * B * valid * K * hd)
-        bound = nbytes / HBM * 1e3
-        rule = fk.decode_splits(B * K, H // K, skv, sms)
-        want = fk._launch(q, k, v, False, 0, kv_len, rule)
-        scale = max(1.0, float(want.abs().max()))
-        times = []
-        for split in (1, 2, 4, 8):
-            if split > -(-skv // fk.TILE):
-                continue
-            got = fk._launch(q, k, v, False, 0, kv_len, split)
-            err = float((got - want).abs().max())
-            if err > TOL * scale:
-                raise AssertionError(f"{what}: {split} splits differ from "
-                                     f"{rule} by {err}")
-            ms = device_ms(lambda s=split: fk._launch(q, k, v, False, 0,
-                                                      kv_len, s))
-            times.append(f"{split} {ms:.4f} ms ({bound / ms:.0%})")
-        print(f"decode_sweep {what} (B {B}, H {H}, K {K}, hd {hd}, Skv "
-              f"{skv}, kv_len {valid}): bound {bound:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB at {HBM / 1e12:.2f} TB/s); rule "
-              f"{rule} splits; at " + ", ".join(times), flush=True)
-    for dj, rows, regs in registers():
-        print(f"decode_sweep instance hd <= {32 * dj}, {rows} rows: {regs} "
-              f"registers a thread, {65536 // (256 * -(-regs // 8) * 8)} "
-              f"CTAs of 256 threads an SM by registers", flush=True)
+        sweep(what, f"(B {B}, H {H}, K {K}, hd {hd}, Skv {skv}, kv_len "
+              f"{valid})", q, k, v, kv_len,
+              fk.decode_splits(B * K, H // K, skv, sms),
+              4 * (2 * B * H * hd + 2 * B * valid * K * hd))
+    for what, H, K, hd, n in INT8_SHAPES:
+        (k, ks), (v, vs) = (quantize(torch.randn(
+            B, S_MAX, K, hd, generator=gen, device=dev)) for _ in range(2))
+        q = torch.randn(B, 1, H, hd, generator=gen, device=dev)
+        sweep(f"int8 {what}", f"(B {B}, H {H}, K {K}, hd {hd}, Skv "
+              f"{S_MAX}, kv_len {n})", q, k, v,
+              torch.tensor(n, dtype=torch.int32, device=dev),
+              fk.int8_decode_splits(B * K, H // K, S_MAX, sms),
+              4 * 2 * B * H * hd + 2 * B * n * K * (hd + 4), (ks, vs))
+    for kv, dj, rows, regs in registers():
+        print(f"decode_sweep {kv} instance hd <= {32 * dj}, {rows} rows: "
+              f"{regs} registers a thread, "
+              f"{65536 // (256 * -(-regs // 8) * 8)} CTAs of 256 threads an "
+              f"SM by registers", flush=True)
 
 
 if __name__ == "__main__":

@@ -21,12 +21,16 @@ decode call reads the valid K and V once, which bounds it (0.0502 ms for
 stablelm-3b's 8 x 1025 tokens at 3.35 TB/s).
 
 The int8 decode cache has an instance of its own of the decode
-configuration (entry ``flash_fwd_decode_i8``): K and V int8, each row
-(token, KV head) with one float32 scale in ``kv_scales`` (B, Skv, K,
-1), the reference's ``_quant_kv`` layout.  It loads a row's codes and
-its scale and dequantizes in registers (``float(code) * scale``, the
-reference's rounding) before the same arithmetic, so no float copy of
-the cache is made; its bound is (hd + 4) bytes a K or V row (0.0132 ms
+configuration (entry ``flash_fwd_decode_i8``), still one launch: K and
+V int8, each row (token, KV head) with one float32 scale in
+``kv_scales`` (B, Skv, K, 1), the reference's ``_quant_kv`` layout.
+Each warp copies its next steps' codes and scales by ``cp.async`` into
+a ring of its own in shared memory, several steps in flight while it
+scores one, ``decode_copy_bytes`` bytes a copy; it dequantizes from the
+ring (``float(code) * scale``, the reference's rounding) into the float
+instance's arithmetic, so its output is bitwise the float instance's
+over the dequantized copy at the same split count, and no float copy of
+the cache is made.  Its bound is (hd + 4) bytes a K or V row (0.0132 ms
 at stablelm-3b's).  The prefill (tile) configuration takes no int8: an
 int8 call with more than ``DECODE_MAX_SQ`` queries raises.
 
@@ -53,7 +57,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 cuda_build.register("flash_fwd", CSRC / "flash_fwd.cu", {
     "flash_fwd_f32": ([P] * 5 + [INT] * 10 + [ctypes.c_float, P],
                       ctypes.c_int),
-    "flash_fwd_decode_i8": ([P] * 7 + [INT] * 10 + [ctypes.c_float, P],
+    "flash_fwd_decode_i8": ([P] * 7 + [INT] * 11 + [ctypes.c_float, P],
                             ctypes.c_int),
 })
 MAX_HD = 128   # the kernel's widest head
@@ -79,6 +83,30 @@ def decode_splits(bk: int, rows: int, skv: int, sms: int) -> int:
     while 2 * n <= MAX_SPLIT and 2 * n <= tiles and clusters * 2 * n <= sms:
         n *= 2
     return n
+
+
+@functools.lru_cache(maxsize=None)
+def int8_decode_splits(bk: int, rows: int, skv: int, sms: int) -> int:
+    """``decode_splits`` for the int8 instance.  Its one-row passes hold
+    their keys in flight in the shared-memory ring, not in registers,
+    and are bounded for two CTAs an SM, so there the splits may fill the
+    SMs twice over (seamless-m4t-large-v2's decoder: 2 splits, not 1);
+    passes of more rows keep the float instance's rule, whose split
+    counts measured fastest for them too (``decode_sweep.py``; PERF.md).
+    Like it, it reads the cache's size, never the valid length."""
+    return decode_splits(bk, rows, skv, 2 * sms if rows == 1 else sms)
+
+
+def decode_copy_bytes(hd: int, *addresses: int) -> int:
+    """Bytes of one ``cp.async`` of the int8 instance's codes: 16 where it
+    divides the head width ``hd`` (so every row of the cache starts at a
+    multiple of it) and each of the code tensors' ``addresses``, else 4
+    where that does; 1 where neither does, and the lanes then copy a byte
+    each."""
+    for n in (16, 4):
+        if hd % n == 0 and all(a % n == 0 for a in addresses):
+            return n
+    return 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,8 +178,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_fwd: window {window} < 0")
     B, Sq, H, _ = q.shape
     Skv, K = k.shape[1], k.shape[2]
-    n_split = (decode_splits(B * K, H // K * Sq, Skv,
-                             _sm_count(q.device.index or 0))
+    rule = decode_splits if kv_scales is None else int8_decode_splits
+    n_split = (rule(B * K, H // K * Sq, Skv, _sm_count(q.device.index or 0))
                if Sq <= DECODE_MAX_SQ else 1)
     o = _launch(q, k, v, causal, window, kv_len, n_split, kv_scales)
     flash_fwd.launches += 1
@@ -171,14 +199,15 @@ def _launch(q, k, v, causal: bool, window: int, kv_len,
     seq_k = Skv if kv_len is None or dev_len is not None else (
         int(kv_len) or Skv)
     ptrs = [P(q.data_ptr()), P(k.data_ptr()), P(v.data_ptr())]
+    ints = [B, Sq, Skv, H, K, hd, seq_k, int(causal), int(window), n_split]
     if kv_scales is not None:
         ptrs += [P(t.data_ptr()) for t in kv_scales]
+        ints.append(decode_copy_bytes(hd, k.data_ptr(), v.data_ptr()))
     cuda_build.launch(
         "flash_fwd", "flash_fwd_f32" if kv_scales is None
         else "flash_fwd_decode_i8", q.device,
         *ptrs, P(o.data_ptr()),
-        P(None if dev_len is None else dev_len.data_ptr()),
-        B, Sq, Skv, H, K, hd, seq_k, int(causal), int(window), n_split,
+        P(None if dev_len is None else dev_len.data_ptr()), *ints,
         ctypes.c_float(1.0 / math.sqrt(hd)))
     return o
 

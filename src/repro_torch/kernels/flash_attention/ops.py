@@ -132,8 +132,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     int8 ``k`` and ``v`` (the int8 decode cache): entry ``k[b, t, j]``
     stands for ``k[b, t, j].float() * k_scale[b, t, j]``.  On the CPU the
     plain version dequantizes first, as the reference; on the GPU the
-    kernel's decode configuration (Sq <= 4) reads the codes and scales
-    and dequantizes in registers.  Forward only.
+    kernel's decode configuration (Sq <= 4) copies the codes and scales
+    into a shared-memory ring and dequantizes from it.  Forward only.
     """
     if kv_scales is not None:
         return _forward(q, k, v, causal, window, kv_len, kv_scales)

@@ -716,57 +716,89 @@ def int8_inputs(B, Sq, Skv, H, K, hd, seed):
     return q, k8, v8, ks, vs
 
 
+def at_offset(t, offset):
+    """A contiguous copy of the int8 tensor t whose data starts ``offset``
+    bytes past a 16-byte boundary (a slice of a larger buffer)."""
+    buf = torch.empty(t.numel() + 32, dtype=t.dtype, device=t.device)
+    start = -buf.data_ptr() % 16 + offset
+    out = buf[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 # the int8 decode instance: (B, Sq, Skv, H, K, hd, causal, window,
-# kv_len).  stablelm-3b (hd 80), mixtral-8x7b (hd 128 GQA), seamless's
-# decoder (hd 64) and granite-20b's MQA (48 over 1 head of 128) at the
-# serve cache's 1056 slots with 1025 valid and full; Sq 1 to 4 under
-# causal and window masks; a device kv_len of 0 (no key), 1, 64 and 65
-# (a tile's edge) and every slot; a head that ends inside a thread's
-# columns (7)
+# kv_len, offset).  stablelm-3b (hd 80), mixtral-8x7b (hd 128 GQA),
+# seamless's decoder (hd 64) and granite-20b's MQA (48 over 1 head of
+# 128) at the serve cache's 1056 slots with 1025 valid and full; Sq 1 to
+# 4 under causal and window masks; a device kv_len of 0 (no key), 1, 64
+# and 65 (a tile's edge) and every slot; a head that ends inside a
+# thread's columns (7, copied a byte a lane); heads copied 4 bytes at a
+# time (36, 72, 100); one key on either side of a round of the CTA's 8
+# warps (64 keys) and of a wrap of their 4-step rings (256), in one
+# split (B K = 128 pairs); codes starting 4, 8 and 1 bytes past a
+# 16-byte boundary (copies of 4, 4 and 1 bytes at hd 80)
 INT8_CASES = [
-    (2, 1, 1056, 32, 32, 80, False, 0, 1025),
-    (2, 1, 1056, 32, 8, 128, False, 0, 1025),
-    (2, 1, 1056, 16, 16, 64, False, 0, 1025),
-    (2, 1, 1056, 48, 1, 128, False, 0, 1025),
-    (2, 1, 1056, 32, 32, 80, False, 0, 1056),
-    (2, 1, 1056, 48, 1, 128, False, 0, None),
-    (2, 2, 300, 8, 2, 64, True, 0, None),
-    (2, 3, 300, 8, 2, 80, True, 3, None),
-    (1, 4, 300, 48, 1, 128, True, 3, None),
-    (2, 4, 200, 4, 4, 80, False, 0, 150),
-    (2, 1, 1000, 8, 2, 64, False, 0, 0),
-    (2, 1, 1000, 8, 2, 80, False, 0, 1),
-    (2, 1, 1000, 8, 2, 128, False, 0, 64),
-    (2, 1, 1000, 8, 2, 80, False, 0, 65),
-    (2, 2, 1000, 32, 8, 128, False, 0, 64),
-    (2, 3, 130, 4, 4, 64, False, 0, 65),
-    (2, 1, 1000, 8, 2, 7, False, 0, 513),
+    (2, 1, 1056, 32, 32, 80, False, 0, 1025, 0),
+    (2, 1, 1056, 32, 8, 128, False, 0, 1025, 0),
+    (2, 1, 1056, 16, 16, 64, False, 0, 1025, 0),
+    (2, 1, 1056, 48, 1, 128, False, 0, 1025, 0),
+    (2, 1, 1056, 32, 32, 80, False, 0, 1056, 0),
+    (2, 1, 1056, 48, 1, 128, False, 0, None, 0),
+    (2, 2, 300, 8, 2, 64, True, 0, None, 0),
+    (2, 3, 300, 8, 2, 80, True, 3, None, 0),
+    (1, 4, 300, 48, 1, 128, True, 3, None, 0),
+    (2, 4, 200, 4, 4, 80, False, 0, 150, 0),
+    (2, 1, 1000, 8, 2, 64, False, 0, 0, 0),
+    (2, 1, 1000, 8, 2, 80, False, 0, 1, 0),
+    (2, 1, 1000, 8, 2, 128, False, 0, 64, 0),
+    (2, 1, 1000, 8, 2, 80, False, 0, 65, 0),
+    (2, 2, 1000, 32, 8, 128, False, 0, 64, 0),
+    (2, 3, 130, 4, 4, 64, False, 0, 65, 0),
+    (2, 1, 1000, 8, 2, 7, False, 0, 513, 0),
+    (2, 1, 1000, 8, 2, 36, False, 0, 513, 0),
+    (2, 2, 300, 16, 4, 72, True, 0, None, 0),
+    (2, 1, 1000, 8, 2, 100, False, 0, 777, 0),
+    (1, 4, 300, 48, 1, 100, True, 5, None, 0),
+    (4, 1, 300, 32, 32, 80, False, 0, 63, 0),
+    (4, 1, 300, 32, 32, 80, False, 0, 64, 0),
+    (4, 1, 300, 32, 32, 80, False, 0, 65, 0),
+    (4, 1, 300, 32, 32, 80, False, 0, 255, 0),
+    (4, 1, 300, 32, 32, 80, False, 0, 256, 0),
+    (4, 1, 300, 32, 32, 80, False, 0, 257, 0),
+    (2, 1, 1056, 32, 32, 80, False, 0, 1025, 4),
+    (2, 1, 1056, 32, 32, 80, False, 0, 1025, 8),
+    (2, 1, 1056, 32, 32, 80, False, 0, 1025, 1),
 ]
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,kv_len",
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,kv_len,offset",
                          INT8_CASES)
 def test_flash_int8_decode_vs_plain(cuda_device, B, Sq, Skv, H, K, hd,
-                                    causal, window, kv_len):
+                                    causal, window, kv_len, offset):
+    from repro_torch.kernels.flash_attention import kernel
     q, k8, v8, ks, vs = int8_inputs(B, Sq, Skv, H, K, hd, Sq * hd + Skv)
     kw = dict(causal=causal, window=window)
     n = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
     want = flash_attention(q, k8, v8, kv_len=n, kv_scales=(ks, vs), **kw)
+    gq, gks, gvs = (t.to(cuda_device) for t in (q, ks, vs))
+    gk8, gv8 = (at_offset(t.to(cuda_device), offset) for t in (k8, v8))
+    assert gk8.data_ptr() % 16 == offset and gk8.is_contiguous()
+    gn = None if n is None else n.to(cuda_device)
     before = flash_fwd.launches
-    got = flash_attention(*(t.to(cuda_device) for t in (q, k8, v8)),
-                          kv_len=None if n is None else n.to(cuda_device),
-                          kv_scales=(ks.to(cuda_device), vs.to(cuda_device)),
+    got = flash_attention(gq, gk8, gv8, kv_len=gn, kv_scales=(gks, gvs),
                           **kw)
     torch.cuda.synchronize()
     assert flash_fwd.launches == before + 1
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
-    # the same as the float instance over the dequantized cache
-    deq = flash_attention(q.to(cuda_device), (k8.float() * ks).to(cuda_device),
-                          (v8.float() * vs).to(cuda_device),
-                          kv_len=None if n is None else n.to(cuda_device),
-                          **kw)
-    torch.testing.assert_close(got, deq, rtol=2e-5, atol=2e-5)
+    # bitwise the float instance over the dequantized cache, at the same
+    # key splits
+    n_split = kernel.int8_decode_splits(
+        B * K, H // K * Sq, Skv, kernel._sm_count(gq.device.index or 0))
+    deq = kernel._launch(gq, (k8.float() * ks).to(cuda_device),
+                         (v8.float() * vs).to(cuda_device), causal, window,
+                         gn, n_split)
+    assert torch.equal(got, deq)
 
 
 def test_quant_kv_on_gpu_bitwise(cuda_device):
