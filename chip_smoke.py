@@ -269,9 +269,24 @@ INT8_VS_CPU = dict(arch="stablelm-3b", layers=2, requests=8, steps=48,
 # tests/test_serving_features.py's contract: int8 logits within 2% of a
 # reference (relative to its largest)
 INT8_RTOL = 0.02
-# the keys of a serve spec that cut the model's depth rather than go to
-# serve
-DEPTH = ("layers", "enc_layers")
+# KV-head padding: deepseek-coder-33b at full width, cut to 8 of its 62
+# layers, at tp 16 with pad_kv, (H, K) = (64, 16): a padded layer is
+# about 560M parameters, 2.24 GB in float32, and 8 with the embedding
+# and head about 20 GB; SERVE's traffic
+SERVE_PADDED = dict(SERVE, arch="deepseek-coder-33b", layers=8, tp=16,
+                    pad_kv=True)
+# the padded models against the CPU, each at full width cut to 2 layers
+# with SERVE_DENSE_VS_CPU's traffic (then INT8_VS_CPU's steps): (64, 16)
+# G 4, phi3-medium-14b at tp 16 (48, 16) G 3, granite-20b's MQA (48, 1)
+# G 48
+PADDED_VS_CPU = (
+    dict(SERVE_DENSE_VS_CPU, arch="deepseek-coder-33b", tp=16, pad_kv=True),
+    dict(SERVE_DENSE_VS_CPU, arch="phi3-medium-14b", tp=16),
+    dict(SERVE_DENSE_VS_CPU, arch="granite-20b"),
+)
+# the keys of a serve spec that shape the model (its depth, its head
+# padding) rather than go to serve
+DEPTH = ("layers", "enc_layers", "tp", "pad_kv")
 # the MoE layer's einsum dispatch against its sort dispatch on the card:
 # max |einsum - sort| <= tol * max(1, max |einsum|); the same routing and
 # expert products, the combine's sums in another order
@@ -302,6 +317,23 @@ TRAIN_LOSS_RTOL = 1e-5
 GRAD_SHAPES = (("stablelm-3b", 2, 1024, 32, 32, 80, 0),
                ("mixtral-8x7b", 2, 1024, 32, 8, 128, 4096))
 GRAD_FACTOR = 8
+# K4's padded shapes, each named by its model and padding -> the
+# PADDED_VS_CPU spec that serves it
+PADDED_SHAPES = {"deepseek-coder-33b tp 16 pad_kv": PADDED_VS_CPU[0],
+                 "phi3-medium-14b tp 16": PADDED_VS_CPU[1],
+                 "granite-20b": PADDED_VS_CPU[2]}
+# the flash phase's shapes, 8 requests: (model, query heads, head width,
+# KV heads, decode kv_lens, a window checked in prefill or 0): the serve
+# paths' stablelm-3b, zamba2-1.2b's shared block and mixtral-8x7b's GQA,
+# then the padded heads at hd 128, deepseek-coder-33b at tp 16 with
+# pad_kv (64 over 16, G 4), phi3-medium-14b at tp 16 (48 over 16, G 3)
+# and granite-20b's MQA (48 over 1, G 48)
+FLASH_MODELS = (("stablelm-3b", 32, 80, 32, (1025, 1055), 0),
+                ("zamba2-1.2b", 32, 64, 32, (1025,), 0),
+                ("mixtral-8x7b", 32, 128, 8, (1025,), 256),
+                ("deepseek-coder-33b tp 16 pad_kv", 64, 128, 16, (1025,), 0),
+                ("phi3-medium-14b tp 16", 48, 128, 16, (1025,), 0),
+                ("granite-20b", 48, 128, 1, (1025,), 0))
 # head widths at which the flash phase also times the prefill, beside
 # stablelm-3b's 80
 FLASH_WIDTHS = (72, 128)
@@ -914,22 +946,24 @@ def sdpa_ms(q, k, v, kv_len: int, causal: bool) -> tuple:
 
 
 def flash_kernel_phase(card: dict, dev) -> dict:
-    """The flash kernel at the serve paths' shapes for 8 requests:
+    """The flash kernel at ``FLASH_MODELS``' shapes for 8 requests:
     stablelm-3b's 32 heads of 80, zamba2-1.2b's shared block's 32 heads
-    of 64 and mixtral-8x7b's 32 query heads of 128 over 8 KV heads (GQA,
-    read natively).  Prefill (1024 tokens, causal) and decode (one query
-    over a 1056-slot cache whose valid length, a device int32, is 1025,
-    and for stablelm-3b also 1055); against the plain chunked version
-    and the naive oracle on the same inputs (K/V repeated to the query
-    heads for them), then timed beside the plain version, its bound and
-    torch's scaled_dot_product_attention (float32, the yardstick; the
-    port never calls it).  mixtral's prefill is also checked, untimed,
-    under a window of 256 that binds."""
+    of 64, mixtral-8x7b's 32 query heads of 128 over 8 KV heads (GQA,
+    read natively) and the padded heads of 128 (64 over 16, 48 over 16,
+    and granite-20b's 48 over 1).  Prefill (1024 tokens, causal) and
+    decode (one query over a 1056-slot cache whose valid length, a
+    device int32, is 1025, and for stablelm-3b also 1055); against the
+    plain chunked version and the naive oracle on the same inputs (K/V
+    repeated to the query heads for them), then timed beside the plain
+    version, its bound and torch's scaled_dot_product_attention
+    (float32, the yardstick; the port never calls it).  mixtral's
+    prefill is also checked, untimed, under a window of 256 that
+    binds."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention_chunked_ref, flash_attention_ref, flash_fwd)
 
-    B, S, H, S_max = 8, 1024, 32, 1056
+    B, S, S_max = 8, 1024, 1056
     gen = torch.Generator(dev).manual_seed(5)
 
     def randn(*shape):
@@ -940,7 +974,8 @@ def flash_kernel_phase(card: dict, dev) -> dict:
             t = t.repeat_interleave(reps, dim=2)
         return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[-1])
 
-    def cases_at(hd: int, K: int, kv_lens: tuple, window: int) -> dict:
+    def cases_at(H: int, hd: int, K: int, kv_lens: tuple,
+                 window: int) -> dict:
         """case -> (run, (q, k, v), plain kwargs, kv_len, causal, timed)"""
         q, k, v = randn(B, S, H, hd), randn(B, S, K, hd), randn(B, S, K, hd)
         q1, kc, vc = randn(B, 1, H, hd), randn(B, S_max, K, hd), randn(
@@ -961,12 +996,9 @@ def flash_kernel_phase(card: dict, dev) -> dict:
         return cases
 
     out = {}
-    for model, hd, K, kv_lens, window in (
-            ("stablelm-3b", 80, H, (S + 1, S_max - 1), 0),
-            ("zamba2-1.2b", 64, H, (S + 1,), 0),
-            ("mixtral-8x7b", 128, 8, (S + 1,), 256)):
+    for model, H, hd, K, kv_lens, window in FLASH_MODELS:
         for case, (run, (a, b, c), kw, kv_len, causal, timed) in cases_at(
-                hd, K, kv_lens, window).items():
+                H, hd, K, kv_lens, window).items():
             got = fold(run())
             check(bool(torch.isfinite(got).all()),
                   f"flash {model} {case}: not finite")
@@ -1010,12 +1042,13 @@ def flash_kernel_phase(card: dict, dev) -> dict:
                 f"{card['tf32'] / 1e12:.0f} TFLOP/s), plain {plain_ms:.3f} "
                 f"ms, library {lib_ms:.4f} ms (scaled_dot_product_attention,"
                 f" float32, {how}); kernel / library {ms / lib_ms:.3f}")
-            out[hd, case] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                                 bound_ms=b_ms, bound_by=b_by,
-                                 max_abs_err=errs["plain"],
-                                 library_ms=lib_ms)
+            out[model, case] = dict(ms=ms, call_ms=call_ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, max_abs_err=errs["plain"],
+                                    library_ms=lib_ms)
     # the prefill at other head widths, outside the main path: 72 is
     # zero-filled to the 80-wide instance, 128 takes 64 queries a CTA
+    H = 32
     for w in FLASH_WIDTHS:
         qw, kw, vw = randn(B, S, H, w), randn(B, S, H, w), randn(B, S, H, w)
         got = fold(flash_fwd(qw, kw, vw, causal=True))
@@ -1036,14 +1069,19 @@ def flash_kernel_phase(card: dict, dev) -> dict:
             f"{3 * ops / card['tf32'] * 1e3:.4f} ms, library {lib_ms:.4f} "
             f"ms; kernel / library {ms / lib_ms:.3f}")
     decode = f"decode kv_len {S + 1}"
+
+    def pair(model):
+        return {"prefill": out[model, "prefill"], "decode": out[model, decode]}
+
+    first = out["stablelm-3b", "prefill"]
     return dict(
         name="flash_fwd", route="cuda",
         source="src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:87",
-        launches=0, **out[80, "prefill"], decode=out[80, decode],
-        hd64={"prefill": out[64, "prefill"], "decode": out[64, decode]},
-        hd128_gqa={"prefill": out[128, "prefill"],
-                   "decode": out[128, decode]})
+        launches=0, **first, decode=out["stablelm-3b", decode],
+        hd64=pair("zamba2-1.2b"), hd128_gqa=pair("mixtral-8x7b"),
+        padded={model: pair(model) for model, *_ in FLASH_MODELS
+                if model in PADDED_SHAPES})
 
 
 # the int8 decode instance at the int8 serve cache's shapes, 8 requests
@@ -1053,7 +1091,9 @@ INT8_FLASH = (("stablelm-3b", 32, 32, 80, 1025, True),
               ("stablelm-3b kv_len 1055", 32, 32, 80, 1055, True),
               ("mixtral-8x7b", 32, 8, 128, 1025, True),
               ("seamless decoder self", 16, 16, 64, 1025, True),
-              ("granite-20b (MQA)", 48, 1, 128, 1025, True))
+              ("granite-20b (MQA)", 48, 1, 128, 1025, True),
+              ("deepseek-coder-33b tp 16 pad_kv", 64, 16, 128, 1025, True),
+              ("phi3-medium-14b tp 16", 48, 16, 128, 1025, True))
 
 
 def flash_int8_phase(card: dict, dev) -> dict:
@@ -1845,8 +1885,9 @@ def device_busy(fn) -> tuple:
 def spec_model(dev, spec: dict):
     """The model of a serve spec: its config, cut to ``spec["layers"]``
     (decoder) and ``spec["enc_layers"]`` (encoder) layers where given
-    (every width kept), random weights drawn on the card from the spec's
-    seed."""
+    (every width kept), its heads padded at ``spec["tp"]`` and
+    ``spec["pad_kv"]`` where given, random weights drawn on the card from
+    the spec's seed."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -1855,7 +1896,8 @@ def spec_model(dev, spec: dict):
         cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
     if "enc_layers" in spec:
         cfg = dataclasses.replace(cfg, encoder_layers=spec["enc_layers"])
-    return init_params(cfg, spec["seed"], device=dev)
+    return init_params(cfg, spec["seed"], device=dev, tp=spec.get("tp", 1),
+                       pad_kv=spec.get("pad_kv", False))
 
 
 class LaunchesInside:
@@ -2034,23 +2076,26 @@ def log_breakdown(path: str, bd: dict, inner: tuple = ()) -> None:
                                   key=lambda kv: -kv[1]))))
 
 
-def serve_path(dev, spec: dict, launches: dict, params=None) -> dict:
+def serve_path(dev, spec: dict, launches: dict, params=None,
+               name: str = "") -> dict:
     """Serve ``spec`` at full width on the card and check what comes out:
     token and logit shapes, finite logits, greedy tokens, the page pool,
     and each kernel's launches (``launches``: kernel -> (per prefill, per
-    decode step)).  ``params``: the model to serve (a depth-cut one), or
-    None for the one ``serve`` draws from the spec's seed."""
+    decode step)).  ``params``: the model to serve (a depth-cut or padded
+    one), or None for the one ``serve`` draws from the spec's seed.
+    ``name``: the path's, by default serve_ and the arch's first word."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
+    from repro_torch.models import dims_from_params
     kw = serve_kwargs(spec)
     torch.cuda.reset_peak_memory_stats(dev)
     res = serve(device=dev, params=params, **kw)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     cfg = get_config(spec["arch"])
     B, G = spec["requests"], spec["gen_len"]
-    name = f"serve_{spec['arch'].split('-')[0]}"
+    name = name or f"serve_{spec['arch'].split('-')[0]}"
     want = {k: {"prefill": pre, "decode": step * (G - 1)}
             for k, (pre, step) in launches.items()}
     for k, w in want.items():
@@ -2071,8 +2116,13 @@ def serve_path(dev, spec: dict, launches: dict, params=None) -> dict:
     check(res["pool"]["dedup_hits"] == (B - 1) * pages
           and res["pool"]["slots_used"] == pages + B * local,
           f"{name}: page pool {res['pool']}")
-    depth = (f" ({params.cfg.n_layers} of {cfg.n_layers} layers, d_model "
-             f"{cfg.d_model})" if params is not None else "")
+    if params is not None:
+        dims = dims_from_params(params, params.cfg)
+        depth = (f" ({params.cfg.n_layers} of {cfg.n_layers} layers, d_model "
+                 f"{cfg.d_model}, {dims.H} query heads over {dims.K} KV "
+                 f"heads of {dims.hd})")
+    else:
+        depth = ""
     if cfg.encoder_layers:
         served = cfg if params is None else params.cfg
         depth = (f" ({served.encoder_layers} encoder and {served.n_layers} "
@@ -2186,19 +2236,23 @@ def router_watch(model) -> dict:
     return seen
 
 
-def serve_vs_cpu(dev, spec: dict) -> None:
+def serve_vs_cpu(dev, spec: dict, model=None) -> None:
     """The card's serve run against a CPU run handed the card's weights
     and fed the card's tokens: logits within ``LOGIT_TOL``.  Also reads
     (does not check) the same comparison with TF32 matrix products, which
     the serve path leaves off, and for an MoE model the smallest
     2nd-to-3rd router probability gap on the card and how many routing
-    choices the CPU run made otherwise."""
+    choices the CPU run made otherwise.  ``model``: the spec's model on
+    the card (default ``spec_model``), moved to the CPU by the run."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import serve
+    from repro_torch.models import dims_from_params
     kw = serve_kwargs(spec)
-    model = spec_model(dev, spec)
+    if model is None:
+        model = spec_model(dev, spec)
     cfg = model.cfg
+    dims = dims_from_params(model, cfg)
     watch = router_watch(model)
     gpu = serve(device=dev, params=model, **kw)
     card_ids, watch["ids"] = watch["ids"], []
@@ -2220,8 +2274,11 @@ def serve_vs_cpu(dev, spec: dict) -> None:
     enc = (f"{cfg.encoder_layers} encoder and " if cfg.encoder_layers
            else "")
     dec = " decoder" if cfg.encoder_layers else ""
-    what = (f"{cfg.name} ({enc}{cfg.n_layers}{dec} layers, d_model "
-            f"{cfg.d_model}) vs CPU")
+    pad = (f" at tp {spec['tp']}" if "tp" in spec else "") + (
+        " with pad_kv" if spec.get("pad_kv") else "")
+    what = (f"{cfg.name}{pad} ({enc}{cfg.n_layers}{dec} layers, d_model "
+            f"{cfg.d_model}, {dims.H} query heads over {dims.K} KV heads) vs "
+            f"CPU")
     routing = ""
     if card_ids:
         check(len(card_ids) == len(cpu_watch["ids"]),
@@ -2399,20 +2456,25 @@ def serve_int8_stablelm(dev, spec: dict, served: dict) -> dict:
 
 
 
-def int8_vs_cpu(dev, spec: dict):
+def int8_vs_cpu(dev, spec: dict, model=None):
     """The card's int8 decode against a CPU run handed the card's model:
     ``spec["steps"]`` teacher-forced steps (seeded tokens) from an empty
     int8 cache on the card (``drive`` the returned function), then the
-    same steps on the CPU, the whole run held to the 2% contract; and
-    the last step held tightly: from the card's cache after the step
-    before it, copied to the CPU, both run the last step on the same
-    token, logits within ``LOGIT_TOL`` and the new slot's codes within 1
-    (the count of codes that differ logged)."""
+    same steps over a float cache on the card, the int8 logits within
+    the 2% contract of those, then the same steps on the CPU, the whole
+    run held to the 2% contract; and the last step held tightly: from
+    the card's cache after the step before it, copied to the CPU, both
+    run the last step on the same token, logits within ``LOGIT_TOL`` and
+    the new slot's codes within 1 (the count of codes that differ
+    logged).  ``model``: the spec's model on the card (default
+    ``spec_model``), moved to the CPU by the report."""
     import numpy as np
     import torch
-    from repro_torch.models import decode_step, init_cache
-    model = spec_model(dev, spec)
+    from repro_torch.models import decode_step, dims_from_params, init_cache
+    if model is None:
+        model = spec_model(dev, spec)
     cfg = model.cfg
+    dims = dims_from_params(model, cfg)
     B, T = spec["requests"], spec["steps"]
     toks = torch.from_numpy(np.random.default_rng(spec["seed"] + 48).integers(
         0, cfg.vocab_size, (B, T)))
@@ -2431,6 +2493,19 @@ def int8_vs_cpu(dev, spec: dict):
         state["logits"] = torch.stack(logits, 1)
 
     def report() -> None:
+        cache = init_cache(model, cfg, B, spec["max_len"])
+        logits = []
+        for t in range(T):     # the same steps over a float cache
+            lg, cache = decode_step(model, cfg, cache,
+                                    toks[:, t:t + 1].to(dev))
+            logits.append(lg[:, :cfg.vocab_size].cpu())
+        lf = torch.stack(logits, 1)
+        del cache
+        rel_f = float((state["logits"] - lf).abs().max()
+                      / (lf.abs().max() + 1e-9))
+        check(rel_f < INT8_RTOL, f"int8_vs_cpu {cfg.name}: card's int8 "
+              f"logits {rel_f:.4%} of its float cache's largest, contract "
+              f"{INT8_RTOL:.0%}")
         t0 = time.perf_counter()
         cpu = model.cpu()   # the card's run is done
         cache = init_cache(cpu, cfg, B, spec["max_len"], kv_dtype="int8")
@@ -2440,9 +2515,9 @@ def int8_vs_cpu(dev, spec: dict):
             logits.append(lg[:, :cfg.vocab_size])
         lc, lg = torch.stack(logits, 1), state["logits"]
         rel = float((lg - lc).abs().max() / (lc.abs().max() + 1e-9))
-        check(rel < INT8_RTOL, f"int8_vs_cpu: card's int8 logits {rel:.4%} "
-              f"of the CPU's largest over {T} steps, contract "
-              f"{INT8_RTOL:.0%}")
+        check(rel < INT8_RTOL, f"int8_vs_cpu {cfg.name}: card's int8 "
+              f"logits {rel:.4%} of the CPU's largest over {T} steps, "
+              f"contract {INT8_RTOL:.0%}")
         run_codes = sum(int((state["cache"][n] != cache[n]).sum())
                         for n in ("k", "v"))
         # the last step alone, both from the card's cache before it
@@ -2457,13 +2532,16 @@ def int8_vs_cpu(dev, spec: dict):
         worst = max(int(d.abs().max()) for d in diffs)
         flips = sum(int((d != 0).sum()) for d in diffs)
         codes = sum(d.numel() for d in diffs)
-        check(err <= bound and worst <= 1, f"int8_vs_cpu: step {T} from "
-              f"the card's cache: logits max_abs_err {err} > {bound} or a "
-              f"new code {worst} off")
+        check(err <= bound and worst <= 1, f"int8_vs_cpu {cfg.name}: step "
+              f"{T} from the card's cache: logits max_abs_err {err} > "
+              f"{bound} or a new code {worst} off")
         log(f"int8_vs_cpu: {cfg.name} at full width cut to {cfg.n_layers} "
-            f"layers, {B} requests, {T} teacher-forced decode steps from an "
+            f"layers, {dims.H} query heads over {dims.K} KV heads, {B} "
+            f"requests, {T} teacher-forced decode steps from an "
             f"empty int8 cache of {spec['max_len']} slots: card against a "
-            f"CPU run handed the card's model, logits {rel:.4%} of the CPU's "
+            f"float cache on the card, logits {rel_f:.4%} of its largest; "
+            f"card against a CPU run handed the card's model, logits "
+            f"{rel:.4%} of the CPU's "
             f"largest (contract {INT8_RTOL:.0%}), {run_codes} of the run's "
             f"codes differ; step {T} from the card's cache after step "
             f"{T - 1} on both: logits max_abs_err {err:.3e} <= {bound:.3e} "
@@ -2472,6 +2550,58 @@ def int8_vs_cpu(dev, spec: dict):
             f" s")
 
     return card, report
+
+
+def padded_vs_cpu(dev, spec: dict, drive) -> tuple:
+    """A padded model (``spec``: full width cut in depth, its tp and
+    pad_kv) against the CPU on one model handed from run to run: the
+    float serve (``serve_vs_cpu``, path "<arch> float": the card's run and
+    its TF32 rerun), then ``INT8_VS_CPU``'s steps through an int8 cache
+    (``int8_vs_cpu``, path "<arch> int8").  Returns the two paths'
+    names."""
+    import torch
+    model = spec_model(dev, spec)
+    name = f"padded_vs_cpu {spec['arch']}"
+    drive(f"{name} float", ("flash_fwd",),
+          lambda: serve_vs_cpu(dev, spec, model))
+    model.to(dev)        # the CPU run took it there
+    card, report = int8_vs_cpu(dev, dict(INT8_VS_CPU, arch=spec["arch"]),
+                               model)
+    drive(f"{name} int8", ("flash_fwd",), card)
+    report()
+    del model, card, report
+    torch.cuda.empty_cache()
+    return f"{name} float", f"{name} int8"
+
+
+def uneven_groups_raise(dev, spec: dict) -> None:
+    """``spec``'s model at tp 8 with its query heads uneven over its
+    padded KV heads (phi3-medium-14b: 40 over 16), one layer at full
+    width: its prefill on the card raises ValueError from the flash
+    wrapper's check, with no flash launch before it."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_fwd
+    from repro_torch.models import dims_from_params, prefill
+    model = spec_model(dev, dict(spec, tp=8, layers=1))
+    dims = dims_from_params(model, model.cfg)
+    check(dims.H % dims.K != 0, f"uneven groups: {dims} divide")
+    toks = torch.zeros((2, 16), dtype=torch.long, device=dev)
+    before = flash_fwd.launches
+    try:
+        prefill(model, model.cfg, toks)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError(f"{spec['arch']} at tp 8: prefill ran with "
+                             f"{dims.H} query heads over {dims.K} KV heads")
+    check(flash_fwd.launches == before,
+          f"{spec['arch']} at tp 8: {flash_fwd.launches - before} flash "
+          f"launches before the raise")
+    log(f"uneven_groups: {spec['arch']} at tp 8, {dims.H} query heads over "
+        f"{dims.K} KV heads: prefill on the card raised ValueError "
+        f"({msg!r}), 0 flash launches")
+    del model
+    torch.cuda.empty_cache()
 
 
 def run_figures(dev, wrappers: dict) -> dict:
@@ -3194,6 +3324,38 @@ def main() -> int:
     del bd, model
     torch.cuda.empty_cache()
 
+    # --------- KV-head padding: deepseek-coder-33b at (64, 16), 8 layers
+    from repro_torch.models import dims_from_params
+    model = spec_model(dev, SERVE_PADDED)
+    Lp, Gp = model.cfg.n_layers, SERVE_PADDED["gen_len"]
+    dims = dims_from_params(model, model.cfg)
+    check((dims.H, dims.K) == (64, 16), f"serve_padded: heads {dims}")
+    drive("serve_padded", ("flash_fwd",), lambda: serve_path(
+        dev, SERVE_PADDED, {"ssd_chunked": (0, 0), "flash_fwd": (Lp, Lp)},
+        params=model, name="serve_padded"))
+    check(by_path["flash_fwd"]["serve_padded"] == Lp * Gp,
+          f"serve_padded: {by_path['flash_fwd']['serve_padded']} flash "
+          f"launches, expected {Lp} x {Gp} passes")
+    torch.cuda.empty_cache()
+    bd = serve_breakdown(dev, SERVE_PADDED,
+                         {"decoder layers": lambda m: m.layers},
+                         ("flash_fwd",), params=model)
+    check(bd["prefill_launches"] == {"flash_fwd": Lp}
+          and bd["decode_launches"] == {"flash_fwd": Lp},
+          f"serve_padded breakdown: {bd['prefill_launches']} flash "
+          f"launches a prefill, {bd['decode_launches']} a decode step")
+    log_breakdown("serve_padded", bd)
+    k4p = k4["padded"]["deepseek-coder-33b tp 16 pad_kv"]
+    log(f"serve_padded: from the kernel phase, attention at (64, 16) is "
+        f"{Lp} x {k4p['prefill']['ms']:.4f} ms = "
+        f"{Lp * k4p['prefill']['ms'] / 1e3:.4f} s of the warm prefill "
+        f"({Lp * k4p['prefill']['ms'] / 1e3 / bd['prefill_s']:.1%}) and "
+        f"{Lp} x {k4p['decode']['ms']:.4f} ms = "
+        f"{Lp * k4p['decode']['ms']:.3f} ms of a decode step "
+        f"({Lp * k4p['decode']['ms'] / 1e3 / bd['decode_step_s']:.1%})")
+    del bd, model
+    torch.cuda.empty_cache()
+
     # ------------------------- the card's serve runs against the CPU's
     serve_vs_cpu(dev, SERVE_VS_CPU)
     serve_vs_cpu(dev, SERVE_DENSE_VS_CPU)
@@ -3201,6 +3363,17 @@ def main() -> int:
     serve_vs_cpu(dev, SERVE_MOE_VS_CPU)
     serve_vs_cpu(dev, SERVE_AUDIO_VS_CPU)
     torch.cuda.empty_cache()
+    padded_paths = {}
+    for spec in PADDED_VS_CPU:
+        f_path, i_path = padded_vs_cpu(dev, spec, drive)
+        L2, G2 = spec["layers"], spec["gen_len"]
+        n_f, n_i = by_path["flash_fwd"][f_path], by_path["flash_fwd"][i_path]
+        check(n_f == 2 * L2 * G2 and n_i == L2 * INT8_VS_CPU["steps"],
+              f"padded_vs_cpu {spec['arch']}: {n_f} and {n_i} flash "
+              f"launches, expected 2 x {L2} x {G2} and {L2} x "
+              f"{INT8_VS_CPU['steps']}")
+        padded_paths[spec["arch"]] = f_path, i_path
+    uneven_groups_raise(dev, PADDED_VS_CPU[1])
 
     # ------------------------------------- training, full width and depth
     tcfg = get_config(TRAIN["arch"])
@@ -3232,9 +3405,23 @@ def main() -> int:
         k["launches"] = sum(by_path[name].values())
         k["launches_by_path"] = by_path[name]
     # the int8 instance's launches, every one at stablelm-3b's shape
+    # or a padded one; the padded shapes' float launches (decode steps
+    # and prefills together under "decode")
     kernels["flash_fwd"]["int8_decode"]["stablelm-3b"]["launches"] = sum(
         by_path["flash_fwd"][p] for p in ("serve_int8_stablelm",
                                           "int8_vs_cpu"))
+    for shape, spec in PADDED_SHAPES.items():
+        f_path, i_path = padded_paths[spec["arch"]]
+        i8_case = ("granite-20b (MQA)" if shape == "granite-20b" else shape)
+        kernels["flash_fwd"]["int8_decode"][i8_case]["launches"] = (
+            by_path["flash_fwd"][i_path])
+        n = by_path["flash_fwd"][f_path] + (
+            by_path["flash_fwd"]["serve_padded"]
+            if spec["arch"] == SERVE_PADDED["arch"] else 0)
+        kernels["flash_fwd"]["padded"][shape]["launches"] = n
+        log(f"flash_fwd at {shape}: {n} float launches (prefill and "
+            f"decode), {by_path['flash_fwd'][i_path]} int8 decode launches "
+            f"on the paths")
     check_profiler_records()
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")

@@ -114,6 +114,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def check_groups(H: int, K: int) -> None:
+    """Raise unless the ``H`` query heads form whole groups over the ``K``
+    KV heads: a KV-head padding can leave them uneven (phi3-medium-14b at
+    tp 8, 40 over 16), and neither the kernel nor its plain version may
+    run on a floored group."""
+    if H % K:
+        raise ValueError(f"flash_fwd: {H} query heads are not a multiple "
+                         f"of {K} KV heads")
+
+
 def _check(q, k, v, kv_len, kv_scales=None) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: tensors must lie on a CUDA device, "
@@ -122,9 +132,7 @@ def _check(q, k, v, kv_len, kv_scales=None) -> None:
         raise ValueError("flash_fwd: q, k and v must be 4-d")
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
-    if H % K:
-        raise ValueError(f"flash_fwd: {H} query heads are not a multiple "
-                         f"of {K} KV heads")
+    check_groups(H, K)
     if not 1 <= hd <= MAX_HD:
         raise ValueError(f"flash_fwd: head width {hd} not in 1..{MAX_HD}")
     kv_dtype = torch.float32 if kv_scales is None else torch.int8

@@ -16,7 +16,7 @@ from typing import Optional, Union
 
 import torch
 
-from .kernel import flash_fwd
+from .kernel import check_groups, flash_fwd
 from .ref import (NEG_INF, Scales, _len, _mask,
                   flash_attention_chunked_ref)
 
@@ -32,6 +32,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_scales=kv_scales)
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
+    check_groups(H, K)
     G = H // K
 
     def fold(t, reps):      # (B, S, n, w) -> (B * n * reps, S, w)
@@ -125,8 +126,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CPU tensors run the plain chunked version on head-folded copies; any
     other tensors go to the ``flash_fwd`` CUDA kernel, which indexes the
     KV head itself and raises off a CUDA device.  There is no other
-    fallback.  Differentiable in q, k and v through
-    :class:`FlashAttention`.
+    fallback.  Both raise ``ValueError`` before any work when H % K != 0.
+    Differentiable in q, k and v through :class:`FlashAttention`.
 
     ``kv_scales``: (k_scale, v_scale), each (B, Skv, K, 1) float32, for
     int8 ``k`` and ``v`` (the int8 decode cache): entry ``k[b, t, j]``

@@ -5,7 +5,8 @@ whose ``state_dict`` keys follow the reference's parameter tree
 (``embed``, ``final_norm``, ``lm_head``, ``layers.<i>.attn.wq``,
 ``mlstm_layers.<i>.mlstm.wq``, ...; :mod:`.convert` maps one onto the
 other).  Five families are ported: the dense decoder (a stack of
-:class:`DenseBlock`, stablelm-3b), the MoE family (the same stack with
+:class:`DenseBlock`: stablelm-3b, deepseek-coder-33b, granite-20b,
+phi3-medium-14b), the MoE family (the same stack with
 a :class:`~.moe.MoELayer` in place of each MLP, mixtral-8x7b and
 arctic-480b), the audio family (seamless-m4t-large-v2: an encoder stack
 of non-causal :class:`DenseBlock` over frame embeddings, :func:`encode`,
@@ -14,7 +15,9 @@ hybrid (zamba2-1.2b: a stack of :class:`~.ssm.Mamba2Block` and one
 shared-weight :class:`DenseBlock` applied after every
 ``shared_attn_every`` of them) and the SSM family (xLSTM: a stack of
 mLSTM layers with sLSTM layers at their configured indices); the VLM
-family raises ``NotImplementedError``.
+family raises ``NotImplementedError``.  Every attention layer is built
+at the head counts of :func:`model_dims`, padded for a tensor-parallel
+degree as the reference pads them (``init_params(..., tp=, pad_kv=)``).
 
 :func:`forward_train` is the training loss of the dense and MoE
 families, differentiable through autograd (attention's gradient is
@@ -57,16 +60,23 @@ def require_ported(cfg: ArchConfig) -> None:
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
             f"PyTorch yet (ROADMAP.md, section 1 item 4: "
             f"{NOT_PORTED.get(cfg.family, 'not planned')}); only the "
-            f"{DENSE!r} (stablelm-3b), {MOE!r} (mixtral-8x7b, "
+            f"{DENSE!r} (stablelm-3b, deepseek-coder-33b, granite-20b, "
+            f"phi3-medium-14b), {MOE!r} (mixtral-8x7b, "
             f"arctic-480b), {AUDIO!r} (seamless-m4t-large-v2), "
             f"{HYBRID!r} (zamba2-1.2b) and {SSM!r} (xlstm-125m) families "
             f"are")
 
 
-def model_dims(cfg: ArchConfig) -> ModelDims:
-    """Head counts padded for tensor parallelism at the port's one
-    degree, tp = 1, where they are the config's."""
-    H, K = cfg.padded_heads(1)
+def model_dims(cfg: ArchConfig, tp: int = 1, pad_kv: bool = False
+               ) -> ModelDims:
+    """Head counts padded up to divide the tensor-parallel degree ``tp``
+    (``ArchConfig.padded_heads``); ``pad_kv`` pads the KV heads to a
+    multiple of ``tp`` as well, MQA's one head excepted.  The padded
+    heads are drawn like the others, as in the reference.  A padding
+    can leave a query group uneven (phi3-medium-14b at tp 8: 40 query
+    heads over 16 KV heads): such a model builds, and its attention
+    raises."""
+    H, K = cfg.padded_heads(tp, pad_kv)
     return ModelDims(H, K, cfg.hd)
 
 
@@ -192,12 +202,16 @@ class DenseBlock(nn.Module):
 
 
 class LanguageModel(nn.Module):
-    """Token embedding, the layer stack, final norm and LM head."""
+    """Token embedding, the layer stack, final norm and LM head; the
+    attention layers (dense, MoE and audio stacks, the hybrid's shared
+    block) at the head counts ``dims`` (default ``model_dims(cfg)``)."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dims: Optional[ModelDims] = None):
         super().__init__()
         require_ported(cfg)
+        dims = dims or model_dims(cfg)
         self.cfg = cfg
         D, V = cfg.d_model, padded_vocab(cfg)
         self.embed = nn.Parameter(dense_init(gen, (V, D), dtype, scale=1.0))
@@ -205,7 +219,6 @@ class LanguageModel(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(dense_init(gen, (D, V), dtype))
         if cfg.family in (DENSE, MOE, AUDIO):
-            dims = model_dims(cfg)
             if cfg.family == AUDIO:
                 self.enc_layers = nn.ModuleList(
                     DenseBlock(cfg, dims, gen, dtype)
@@ -217,7 +230,7 @@ class LanguageModel(nn.Module):
         if cfg.family == HYBRID:
             self.layers = nn.ModuleList(
                 Mamba2Block(cfg, gen, dtype) for _ in range(cfg.n_layers))
-            self.shared_attn = DenseBlock(cfg, model_dims(cfg), gen, dtype)
+            self.shared_attn = DenseBlock(cfg, dims, gen, dtype)
             return
         n_m = cfg.n_layers - len(cfg.slstm_layers)
         self.mlstm_layers = nn.ModuleList(
@@ -228,14 +241,16 @@ class LanguageModel(nn.Module):
 
 def init_params(cfg: ArchConfig, seed: int = 0,
                 dtype: torch.dtype = torch.float32,
-                device: Optional[Union[str, torch.device]] = None
-                ) -> LanguageModel:
+                device: Optional[Union[str, torch.device]] = None, *,
+                tp: int = 1, pad_kv: bool = False) -> LanguageModel:
     """A model with random weights drawn from ``seed`` on ``device`` (the
-    CPU if None).  Two devices draw different numbers from one seed: to
-    compare them, hand one model's ``state_dict`` to the other."""
+    CPU if None), its attention at ``model_dims(cfg, tp, pad_kv)`` (the
+    SSM family has none and ignores both).  Two devices draw different
+    numbers from one seed: to compare them, hand one model's
+    ``state_dict`` to the other."""
     gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     with torch.device(gen.device):      # the constant parameters too
-        return LanguageModel(cfg, gen, dtype)
+        return LanguageModel(cfg, gen, dtype, model_dims(cfg, tp, pad_kv))
 
 
 def _slstm_runs(cfg: ArchConfig) -> List[Tuple[int, Optional[int]]]:

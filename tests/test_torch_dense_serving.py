@@ -1,6 +1,7 @@
-"""The port's dense serving path (stablelm-3b, reduced) against the JAX
-reference: weights handed over with ``params_from_jax``, prefill logits,
-every K/V cache entry and teacher-forced decode on the same tokens, the
+"""The port's dense serving path (stablelm-3b, deepseek-coder-33b,
+granite-20b and phi3-medium-14b, reduced) against the JAX reference:
+weights handed over with ``params_from_jax``, prefill logits, every K/V
+cache entry and teacher-forced decode on the same tokens, the
 launcher's tokens and page pool."""
 import dataclasses
 import json
@@ -29,18 +30,25 @@ from repro_torch.models.convert import params_from_jax, params_to_jax
 TOL = 1e-4   # port vs reference, float32 on the CPU: scaled by max |ref|
 B, S = 2, 32
 
-# reduced stablelm-3b (4 layers, 4 heads of 16, 4 KV heads), its GQA
-# variant (2 KV heads) and a sliding window shorter than the prompt (the
-# cache a ring buffer, the prefill's K/V rolled into it)
-VARIANTS = {"mha": {}, "gqa": {"n_kv_heads": 2},
-            "window": {"n_kv_heads": 2, "sliding_window": 8}}
+# variant -> (arch, overrides of its reduced config): reduced stablelm-3b
+# (4 layers, 4 heads of 16, 4 KV heads), its GQA variant (2 KV heads) and
+# a sliding window shorter than the prompt (the cache a ring buffer, the
+# prefill's K/V rolled into it); the other dense configs reduced, each
+# 4 heads over 1 KV head: deepseek-coder-33b (RoPE theta 1e5),
+# granite-20b (MQA in full too) and phi3-medium-14b
+VARIANTS = {"mha": ("stablelm-3b", {}),
+            "gqa": ("stablelm-3b", {"n_kv_heads": 2}),
+            "window": ("stablelm-3b", {"n_kv_heads": 2,
+                                       "sliding_window": 8}),
+            "deepseek": ("deepseek-coder-33b", {}),
+            "granite": ("granite-20b", {}),
+            "phi3": ("phi3-medium-14b", {})}
 
 
 def load(variant, seed=0):
-    jcfg = dataclasses.replace(jax_reduced(jax_get_config("stablelm-3b")),
-                               **VARIANTS[variant])
-    cfg = dataclasses.replace(reduced(get_config("stablelm-3b")),
-                              **VARIANTS[variant])
+    arch, over = VARIANTS[variant]
+    jcfg = dataclasses.replace(jax_reduced(jax_get_config(arch)), **over)
+    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
     tree = jax.tree.map(np.asarray,
                         jax_init_params(jcfg, jax.random.PRNGKey(seed)))
     model = init_params(cfg, 1)

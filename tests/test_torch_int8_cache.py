@@ -183,9 +183,12 @@ def step_slot(cfg, S, t):
 
 # (arch, max_len): stablelm-3b within its cache and past it (the last
 # slot overwritten from step 12 on), mixtral-8x7b's window ring wrapping
-# at 12 slots, seamless with its cross K/V
+# at 12 slots, seamless with its cross K/V; the other dense configs,
+# granite-20b's MQA cache past full
 DECODE_CASES = [("stablelm-3b", 16), ("stablelm-3b", 12),
-                ("mixtral-8x7b", 12), ("seamless-m4t-large-v2", 16)]
+                ("mixtral-8x7b", 12), ("seamless-m4t-large-v2", 16),
+                ("deepseek-coder-33b", 16), ("granite-20b", 12),
+                ("phi3-medium-14b", 16)]
 STEPS = 16
 
 

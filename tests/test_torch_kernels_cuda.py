@@ -6,6 +6,7 @@ without one; run them on a GPU host with
 
 This file imports neither jax nor the reference package, so it runs on a
 host that has only torch and numpy."""
+import dataclasses
 from dataclasses import asdict
 
 import numpy as np
@@ -352,7 +353,11 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
 # (two of 16 tiles: all but two of the 8 splits empty), at the 8-tile
 # boundary where each split holds one tile and one either side (511, 512,
 # 513); caches whose slots are not a multiple of 64; heads of 7, 64, 72,
-# 80 and 128
+# 80 and 128.  Last the padded heads at hd 128: deepseek-coder-33b at tp
+# 16 with pad_kv (64 over 16), phi3-medium-14b at tp 16 (48 over 16, G =
+# 3: a one-pass cluster's 4 rows part empty) and granite-20b's MQA (48
+# over 1: six passes of 8 rows), prefill and decode over the serve
+# cache, and the G = 3 decode over an empty cache (device kv_len 0)
 @pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,kv_len", [
     (2, 200, 200, 4, 4, 80, True, 0, None),
     (2, 64, 64, 4, 2, 64, True, 0, None),
@@ -397,6 +402,12 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
     (2, 1, 1000, 8, 2, 128, False, 0, 512),
     (2, 1, 1000, 8, 2, 64, False, 0, 513),
     (2, 2, 1000, 8, 2, 7, True, 0, 513),
+    (1, 256, 256, 64, 16, 128, True, 0, None),
+    (1, 256, 256, 48, 16, 128, True, 0, None),
+    (1, 256, 256, 48, 1, 128, True, 0, None),
+    (2, 1, 1056, 64, 16, 128, False, 0, 1025),
+    (2, 1, 1056, 48, 16, 128, False, 0, 1025),
+    (2, 1, 1056, 48, 16, 128, False, 0, 0),
 ])
 def test_flash_kernel_vs_plain(cuda_device, B, Sq, Skv, H, K, hd, causal,
                                window, kv_len):
@@ -531,6 +542,44 @@ def test_dense_serve_on_gpu_matches_cpu(cuda_device):
                         seed=1)
     assert gpu["launches"]["flash_fwd"] == {"prefill": 4,
                                             "decode": 4 * (gen - 1)}
+
+
+@pytest.mark.parametrize("arch,over,tp,pad_kv,heads", [
+    ("deepseek-coder-33b", dict(n_heads=56, n_kv_heads=8, head_dim=4), 16,
+     True, (64, 16)),
+    ("phi3-medium-14b", dict(n_heads=40, n_kv_heads=10, head_dim=4), 16,
+     False, (48, 16)),
+])
+def test_padded_serve_on_gpu_matches_cpu(cuda_device, arch, over, tp,
+                                         pad_kv, heads):
+    """deepseek-like and phi3-like reduced configs built at their padded
+    heads, served on the card and on the CPU with the card's weights: the
+    same logits, one flash launch a layer per prefill and decode step."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
+    model = init_params(cfg, 1, device=cuda_device, tp=tp, pad_kv=pad_kv)
+    assert model.layers[0].attn["wk"].shape[1] == heads[1] * 4
+    kw = dict(requests=3, prompt_len=48, gen_len=4, shared_prefix_len=16,
+              seed=1)
+    gpu = serve(device=cuda_device, params=model, **kw)
+    cpu = serve(device="cpu", params=model.cpu(),
+                teacher_tokens=gpu["tokens"], **kw)
+    err = np.abs(gpu["logits"] - cpu["logits"]).max()
+    assert err <= 1e-4 * max(1.0, np.abs(cpu["logits"]).max()), err
+    assert gpu["launches"]["flash_fwd"] == {"prefill": 4, "decode": 4 * 3}
+
+
+def test_uneven_padded_groups_raise_on_gpu(cuda_device):
+    """phi3-like at tp 8 (40 query heads over 16 KV heads) raises
+    ValueError on the card before any flash launch."""
+    from repro_torch.models import prefill
+    cfg = dataclasses.replace(reduced(get_config("phi3-medium-14b")),
+                              n_heads=40, n_kv_heads=10, head_dim=4)
+    model = init_params(cfg, 1, device=cuda_device, tp=8)
+    before = flash_fwd.launches
+    with pytest.raises(ValueError, match="not a multiple"):
+        prefill(model, cfg, torch.zeros((2, 16), dtype=torch.long,
+                                        device=cuda_device))
+    assert flash_fwd.launches == before
 
 
 def test_hybrid_serve_on_gpu_matches_cpu(cuda_device):
@@ -736,7 +785,9 @@ def at_offset(t, offset):
 # time (36, 72, 100); one key on either side of a round of the CTA's 8
 # warps (64 keys) and of a wrap of their 4-step rings (256), in one
 # split (B K = 128 pairs); codes starting 4, 8 and 1 bytes past a
-# 16-byte boundary (copies of 4, 4 and 1 bytes at hd 80)
+# 16-byte boundary (copies of 4, 4 and 1 bytes at hd 80); the padded
+# heads of deepseek-coder-33b (64 over 16) and phi3-medium-14b (48 over
+# 16, G = 3), also over an empty cache
 INT8_CASES = [
     (2, 1, 1056, 32, 32, 80, False, 0, 1025, 0),
     (2, 1, 1056, 32, 8, 128, False, 0, 1025, 0),
@@ -768,6 +819,9 @@ INT8_CASES = [
     (2, 1, 1056, 32, 32, 80, False, 0, 1025, 4),
     (2, 1, 1056, 32, 32, 80, False, 0, 1025, 8),
     (2, 1, 1056, 32, 32, 80, False, 0, 1025, 1),
+    (2, 1, 1056, 64, 16, 128, False, 0, 1025, 0),
+    (2, 1, 1056, 48, 16, 128, False, 0, 1025, 0),
+    (2, 1, 1056, 48, 16, 128, False, 0, 0, 0),
 ]
 
 
