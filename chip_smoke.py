@@ -22,7 +22,11 @@ configuration's int8 instance over an int8 cache of ``_quant_kv`` codes
 and scales at stablelm-3b's, mixtral-8x7b's, seamless's decoder and
 granite-20b's MQA shapes, bitwise the float instance over the
 dequantized copy at the same key splits, beside its byte bound, its
-time before its ring, that float instance and dequantize + SDPA),
+time before its ring, that float instance and dequantize + SDPA; both
+configurations also at the padded heads of 128, (64, 16), (48, 16) and
+(48, 1), and at internvl2-76b's (64, 8), G 8, over 1280 positions in
+prefill and a 1312-slot cache in decode, the registers and spill bytes
+ptxas gave each 8-row decode instance logged beside its time),
 paged decode attention at stablelm-3b's decode and mixtral-8x7b's GQA
 shape
 (timed; also against flash attention over the same tokens held
@@ -131,7 +135,21 @@ The LLM serving path, ``repro_torch.launch.serve.serve``:
   cut to 2 encoder and 2 decoder layers, 2 requests x 256 tokens and
   256 frames; for mixtral also the
   smallest gap between a token's 2nd and 3rd router probability on the
-  card, and how many expert choices the CPU made otherwise.
+  card, and how many expert choices the CPU made otherwise;
+* KV-head padding: ``serve_padded`` (deepseek-coder-33b at full width
+  cut to 8 layers, tp 16 with pad_kv: 64 query heads over 16 KV heads),
+  ``padded_vs_cpu`` (deepseek, phi3-medium-14b at tp 16 and granite-20b
+  at 2 layers: the float serve and 48 int8 steps against the CPU) and
+  ``uneven_groups`` (phi3 at tp 8, 40 over 16: ``ValueError``, no
+  launch);
+* the VLM family: ``serve_vlm`` (internvl2-76b at full width cut to 8 of
+  its 80 layers, 64 query heads over 8 KV heads of 128, 35.8 GB of
+  weights; the same requests, each with 256 patch embeddings from the
+  seed before its prompt; K4 8 a prefill and 8 a decode step, checked;
+  the split of a warm prefill and step) and ``vlm_vs_cpu`` (2 layers:
+  the float serve with 256 patches against the CPU, then 48 int8 steps
+  from a cache prefilled with the patches and 8 tokens, against the
+  card's float cache and the CPU).
 
 The training path, ``repro_torch.train.loop.train_loop`` (before it, in
 the kernel phases, the gradient of flash attention: dq, dk and dv of
@@ -152,6 +170,10 @@ float32 version's error, forward and backward timed):
   ``make_train_step`` on the card and on the CPU handed the card's
   weights and batch: loss within ``TRAIN_LOSS_RTOL``, every parameter's
   gradient present and within ``LOGIT_TOL`` scaled;
+* ``vlm_train_vs_cpu``: internvl2-76b at full width cut to 1 layer, one
+  ``forward_train`` over 256 patches and 128 tokens and its gradient
+  (no optimizer step) on the card and on the CPU handed the card's
+  weights and batch, held as ``train_vs_cpu``; the host's memory logged;
 * ``train_resume``: reduced stablelm-3b on the card, 10 steps straight
   against 5 steps, a stop, one of 4 checkpoint hosts killed and a resume
   to 10 through the EdgeKV ``QuorumCheckpointer``: every loss bitwise
@@ -284,6 +306,26 @@ PADDED_VS_CPU = (
     dict(SERVE_DENSE_VS_CPU, arch="phi3-medium-14b", tp=16),
     dict(SERVE_DENSE_VS_CPU, arch="granite-20b"),
 )
+# the VLM family: internvl2-76b at full width (d_model 8192, 64 query
+# heads over 8 KV heads of 128, SwiGLU 28672, vocab 128256) cut to 8 of
+# its 80 layers: a layer is 855.7M parameters, 3.42 GB in float32, so the
+# whole model (about 282 GB) does not fit one 80 GB card; 8 layers with
+# the embedding and head are 8.95B parameters, 35.8 GB.  SERVE's traffic,
+# each request with the config's 256 patch embeddings (drawn by serve from
+# the seed) before its 1024 prompt tokens: 1280 positions a prefill, a
+# cache of 1312 slots
+SERVE_VLM = dict(SERVE, arch="internvl2-76b", layers=8)
+# internvl2-76b at full width cut to 2 layers against the CPU:
+# SERVE_DENSE_VS_CPU's traffic with 256 patches a request, then
+# INT8_VS_CPU's 48 int8 steps from a prefilled cache (VLM_INT8_PROMPT
+# tokens after the patches)
+SERVE_VLM_VS_CPU = dict(SERVE_DENSE_VS_CPU, arch="internvl2-76b")
+VLM_INT8_PROMPT = 8
+# the VLM's training part against the CPU: one forward_train and its
+# gradient, full width cut to 1 layer, 1 sequence of 384 positions (256
+# patches, then 128 tokens) from SyntheticTokens; 2.96B parameters
+VLM_TRAIN_VS_CPU = dict(arch="internvl2-76b", layers=1, batch=1, seq_len=384,
+                        seed=0)
 # the keys of a serve spec that shape the model (its depth, its head
 # padding) rather than go to serve
 DEPTH = ("layers", "enc_layers", "tp", "pad_kv")
@@ -323,17 +365,23 @@ PADDED_SHAPES = {"deepseek-coder-33b tp 16 pad_kv": PADDED_VS_CPU[0],
                  "phi3-medium-14b tp 16": PADDED_VS_CPU[1],
                  "granite-20b": PADDED_VS_CPU[2]}
 # the flash phase's shapes, 8 requests: (model, query heads, head width,
-# KV heads, decode kv_lens, a window checked in prefill or 0): the serve
-# paths' stablelm-3b, zamba2-1.2b's shared block and mixtral-8x7b's GQA,
-# then the padded heads at hd 128, deepseek-coder-33b at tp 16 with
-# pad_kv (64 over 16, G 4), phi3-medium-14b at tp 16 (48 over 16, G 3)
-# and granite-20b's MQA (48 over 1, G 48)
-FLASH_MODELS = (("stablelm-3b", 32, 80, 32, (1025, 1055), 0),
-                ("zamba2-1.2b", 32, 64, 32, (1025,), 0),
-                ("mixtral-8x7b", 32, 128, 8, (1025,), 256),
-                ("deepseek-coder-33b tp 16 pad_kv", 64, 128, 16, (1025,), 0),
-                ("phi3-medium-14b tp 16", 48, 128, 16, (1025,), 0),
-                ("granite-20b", 48, 128, 1, (1025,), 0))
+# KV heads, prefill positions, decode cache slots, decode kv_lens, the
+# first of them the one a serve path's first step reads, a window checked
+# in prefill or 0): the serve paths' stablelm-3b, zamba2-1.2b's shared
+# block and mixtral-8x7b's GQA, then the padded heads at hd 128,
+# deepseek-coder-33b at tp 16 with pad_kv (64 over 16, G 4),
+# phi3-medium-14b at tp 16 (48 over 16, G 3) and granite-20b's MQA (48
+# over 1, G 48), each at SERVE's 1024 tokens over 1056 slots; and
+# internvl2-76b's (64 over 8, G 8: one pass of 8 rows) at 256 patches +
+# 1024 tokens over a cache of 256 + 1024 + 32
+FLASH_MODELS = (
+    ("stablelm-3b", 32, 80, 32, 1024, 1056, (1025, 1055), 0),
+    ("zamba2-1.2b", 32, 64, 32, 1024, 1056, (1025,), 0),
+    ("mixtral-8x7b", 32, 128, 8, 1024, 1056, (1025,), 256),
+    ("deepseek-coder-33b tp 16 pad_kv", 64, 128, 16, 1024, 1056, (1025,), 0),
+    ("phi3-medium-14b tp 16", 48, 128, 16, 1024, 1056, (1025,), 0),
+    ("granite-20b", 48, 128, 1, 1024, 1056, (1025,), 0),
+    ("internvl2-76b", 64, 128, 8, 1280, 1312, (1281,), 0))
 # head widths at which the flash phase also times the prefill, beside
 # stablelm-3b's 80
 FLASH_WIDTHS = (72, 128)
@@ -952,7 +1000,8 @@ def flash_kernel_phase(card: dict, dev) -> dict:
     read natively) and the padded heads of 128 (64 over 16, 48 over 16,
     and granite-20b's 48 over 1).  Prefill (1024 tokens, causal) and
     decode (one query over a 1056-slot cache whose valid length, a
-    device int32, is 1025, and for stablelm-3b also 1055); against the
+    device int32, is 1025, and for stablelm-3b also 1055; internvl2-76b's
+    64 over 8 at 1280 positions and 1312 slots, 1281 valid); against the
     plain chunked version and the naive oracle on the same inputs (K/V
     repeated to the query heads for them), then timed beside the plain
     version, its bound and torch's scaled_dot_product_attention
@@ -963,7 +1012,7 @@ def flash_kernel_phase(card: dict, dev) -> dict:
     from repro_torch.kernels.flash_attention import (
         flash_attention_chunked_ref, flash_attention_ref, flash_fwd)
 
-    B, S, S_max = 8, 1024, 1056
+    B = 8
     gen = torch.Generator(dev).manual_seed(5)
 
     def randn(*shape):
@@ -974,8 +1023,8 @@ def flash_kernel_phase(card: dict, dev) -> dict:
             t = t.repeat_interleave(reps, dim=2)
         return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[-1])
 
-    def cases_at(H: int, hd: int, K: int, kv_lens: tuple,
-                 window: int) -> dict:
+    def cases_at(H: int, hd: int, K: int, kv_lens: tuple, window: int,
+                 S: int, S_max: int) -> dict:
         """case -> (run, (q, k, v), plain kwargs, kv_len, causal, timed)"""
         q, k, v = randn(B, S, H, hd), randn(B, S, K, hd), randn(B, S, K, hd)
         q1, kc, vc = randn(B, 1, H, hd), randn(B, S_max, K, hd), randn(
@@ -996,9 +1045,11 @@ def flash_kernel_phase(card: dict, dev) -> dict:
         return cases
 
     out = {}
-    for model, H, hd, K, kv_lens, window in FLASH_MODELS:
+    first_step = {}
+    for model, H, hd, K, S, S_max, kv_lens, window in FLASH_MODELS:
+        first_step[model] = kv_lens[0]
         for case, (run, (a, b, c), kw, kv_len, causal, timed) in cases_at(
-                H, hd, K, kv_lens, window).items():
+                H, hd, K, kv_lens, window, S, S_max).items():
             got = fold(run())
             check(bool(torch.isfinite(got).all()),
                   f"flash {model} {case}: not finite")
@@ -1031,6 +1082,8 @@ def flash_kernel_phase(card: dict, dev) -> dict:
             # the tile configuration's products run in 3xTF32: three TF32
             # passes of the same operations on the tensor cores
             tc_ms = 3 * ops / card["tf32"] * 1e3
+            usage = (decode_usage(hd, H // K, False)
+                     if a.shape[1] == 1 and H // K > 4 else None)
             log(f"flash_fwd {model} {case} {shape}: max_abs_err vs plain "
                 f"{errs['plain']:.3e}, vs naive {errs['naive']:.3e} (tol "
                 f"{FLASH_TOL} x max(1, |plain|)); {ms:.4f} ms on the "
@@ -1041,14 +1094,17 @@ def flash_kernel_phase(card: dict, dev) -> dict:
                 f"tensor cores {tc_ms:.4f} ms (3 x ops at "
                 f"{card['tf32'] / 1e12:.0f} TFLOP/s), plain {plain_ms:.3f} "
                 f"ms, library {lib_ms:.4f} ms (scaled_dot_product_attention,"
-                f" float32, {how}); kernel / library {ms / lib_ms:.3f}")
+                f" float32, {how}); kernel / library {ms / lib_ms:.3f}"
+                + ("" if usage is None else f"; {usage['text']}"))
             out[model, case] = dict(ms=ms, call_ms=call_ms,
                                     plain_ms=plain_ms, bound_ms=b_ms,
                                     bound_by=b_by, max_abs_err=errs["plain"],
                                     library_ms=lib_ms)
+            if usage is not None:
+                out[model, case]["ptxas"] = usage["numbers"]
     # the prefill at other head widths, outside the main path: 72 is
     # zero-filled to the 80-wide instance, 128 takes 64 queries a CTA
-    H = 32
+    H, S = 32, 1024
     for w in FLASH_WIDTHS:
         qw, kw, vw = randn(B, S, H, w), randn(B, S, H, w), randn(B, S, H, w)
         got = fold(flash_fwd(qw, kw, vw, causal=True))
@@ -1068,10 +1124,11 @@ def flash_kernel_phase(card: dict, dev) -> dict:
             f"{b_ms:.4f} ms ({b_by}), 3xTF32 on the tensor cores "
             f"{3 * ops / card['tf32'] * 1e3:.4f} ms, library {lib_ms:.4f} "
             f"ms; kernel / library {ms / lib_ms:.3f}")
-    decode = f"decode kv_len {S + 1}"
+    decode = f"decode kv_len {first_step['stablelm-3b']}"
 
     def pair(model):
-        return {"prefill": out[model, "prefill"], "decode": out[model, decode]}
+        return {"prefill": out[model, "prefill"],
+                "decode": out[model, f"decode kv_len {first_step[model]}"]}
 
     first = out["stablelm-3b", "prefill"]
     return dict(
@@ -1081,25 +1138,49 @@ def flash_kernel_phase(card: dict, dev) -> dict:
         launches=0, **first, decode=out["stablelm-3b", decode],
         hd64=pair("zamba2-1.2b"), hd128_gqa=pair("mixtral-8x7b"),
         padded={model: pair(model) for model, *_ in FLASH_MODELS
-                if model in PADDED_SHAPES})
+                if model in PADDED_SHAPES},
+        vlm=pair("internvl2-76b"))
 
 
-# the int8 decode instance at the int8 serve cache's shapes, 8 requests
-# over 1056 slots: (case, query heads, KV heads, head width, device
-# kv_len, timed)
-INT8_FLASH = (("stablelm-3b", 32, 32, 80, 1025, True),
-              ("stablelm-3b kv_len 1055", 32, 32, 80, 1055, True),
-              ("mixtral-8x7b", 32, 8, 128, 1025, True),
-              ("seamless decoder self", 16, 16, 64, 1025, True),
-              ("granite-20b (MQA)", 48, 1, 128, 1025, True),
-              ("deepseek-coder-33b tp 16 pad_kv", 64, 16, 128, 1025, True),
-              ("phi3-medium-14b tp 16", 48, 16, 128, 1025, True))
+def decode_usage(hd: int, rows: int, int8: bool) -> dict:
+    """What ptxas (``-v``, in this process's build log) gave the decode
+    instance that serves ``rows`` query rows a pass (passes of 8 above
+    4) at head width ``hd``, float32 or int8 K/V: its registers a thread
+    and its spill stores and loads in bytes.  Fails the run if the log
+    does not name the instance."""
+    from repro_torch.kernels.flash_attention.decode_sweep import registers
+    dj, rmax = -(-hd // 32), 1 if rows == 1 else 4 if rows <= 4 else 8
+    kind = "int8" if int8 else "float32"
+    found = [r[3:] for r in registers() if r[:3] == (kind, dj, rmax)]
+    check(len(found) == 1, f"ptxas log: no {rmax}-row {kind} decode "
+          f"instance at hd {hd}")
+    regs, stores, loads = found[0]
+    return dict(numbers=dict(registers=regs, spill_stores=stores,
+                             spill_loads=loads),
+                text=f"ptxas: the {rmax}-row {kind} decode instance at hd "
+                f"<= {32 * dj}: {regs} registers a thread, {stores} bytes "
+                f"spill stores, {loads} bytes spill loads")
+
+
+# the int8 decode instance at the int8 serve cache's shapes, 8 requests:
+# (case, query heads, KV heads, head width, cache slots, device kv_len,
+# timed); internvl2-76b's cache holds its 256 patches too
+INT8_FLASH = (("stablelm-3b", 32, 32, 80, 1056, 1025, True),
+              ("stablelm-3b kv_len 1055", 32, 32, 80, 1056, 1055, True),
+              ("mixtral-8x7b", 32, 8, 128, 1056, 1025, True),
+              ("seamless decoder self", 16, 16, 64, 1056, 1025, True),
+              ("granite-20b (MQA)", 48, 1, 128, 1056, 1025, True),
+              ("deepseek-coder-33b tp 16 pad_kv", 64, 16, 128, 1056, 1025,
+               True),
+              ("phi3-medium-14b tp 16", 48, 16, 128, 1056, 1025, True),
+              ("internvl2-76b", 64, 8, 128, 1312, 1281, True))
 
 
 def flash_int8_phase(card: dict, dev) -> dict:
     """K4's int8 decode instance (``flash_fwd`` with ``kv_scales``) at
     ``INT8_FLASH``'s shapes: one query a sequence over an int8 cache of
-    1056 slots, the K/V ``_quant_kv`` of seeded float values, held to the
+    the case's slots, the K/V
+    ``_quant_kv`` of seeded float values, held to the
     plain version (which dequantizes first) within ``FLASH_TOL``; timed
     (device time) beside its byte bound, the plain version, the float32
     decode instance over the dequantized copy, and a yardstick of two
@@ -1113,7 +1194,7 @@ def flash_int8_phase(card: dict, dev) -> dict:
         flash_attention_chunked_ref, flash_fwd)
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models.attention import _quant_kv
-    B, S_max = 8, 1056
+    B = 8
     gen = torch.Generator(dev).manual_seed(35)
 
     def randn(*shape):
@@ -1125,7 +1206,7 @@ def flash_int8_phase(card: dict, dev) -> dict:
         return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[-1])
 
     out = {}
-    for case, H, K, hd, n, timed in INT8_FLASH:
+    for case, H, K, hd, S_max, n, timed in INT8_FLASH:
         G = H // K
         q = randn(B, 1, H, hd)
         (k8, ks), (v8, vs) = _quant_kv(randn(B, S_max, K, hd)), _quant_kv(
@@ -1173,6 +1254,7 @@ def flash_int8_phase(card: dict, dev) -> dict:
 
         yard_ms = device_ms(yardstick)
         del kd, vd
+        usage = decode_usage(hd, G, True) if G > 4 else None
         log(f"flash_fwd int8 decode {case} {shape}: max_abs_err vs plain "
             f"{err:.3e} (tol {FLASH_TOL} x max(1, |plain|)), vs the float "
             f"instance over the dequantized copy at {n_split} splits "
@@ -1186,11 +1268,14 @@ def flash_int8_phase(card: dict, dev) -> dict:
             f"calls (dequantize K and V to float32, then "
             f"scaled_dot_product_attention{', enable_gqa' if G > 1 else ''})"
             f" {yard_ms:.4f} ms; library none (no one torch call reads int8 "
-            f"K/V with scales)")
+            f"K/V with scales)"
+            + ("" if usage is None else f"; {usage['text']}"))
         out[case] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                          library_ms=None, float_ms=float_ms,
                          yardstick_ms=yard_ms, n_split=n_split, launches=0)
+        if usage is not None:
+            out[case]["ptxas"] = usage["numbers"]
     return out
 
 
@@ -1515,6 +1600,7 @@ def train_vs_cpu(dev, spec: dict) -> None:
     from repro_torch.models import init_params
     from repro_torch.optim import Optimizer, adamw
     from repro_torch.train import make_train_step
+    from repro_torch.train.loop import batch_to
     cfg = dataclasses.replace(get_config(spec["arch"]),
                               n_layers=spec["layers"])
     model = init_params(cfg, spec["seed"], device=dev)
@@ -1534,8 +1620,7 @@ def train_vs_cpu(dev, spec: dict) -> None:
         opt = Optimizer(base.init, update)
         fn, _ = make_train_step(cfg, opt, remat=False, chunk=256)
         state = opt.init(dict(params.named_parameters()))
-        _, _, m = fn(params, state, {k: torch.as_tensor(v, device=device)
-                                     .long() for k, v in batch.items()})
+        _, _, m = fn(params, state, batch_to(batch, device))
         return float(m["loss"]), float(m["grad_norm"]), seen
 
     loss, gnorm, g_card = step(model, dev)
@@ -1565,6 +1650,128 @@ def train_vs_cpu(dev, spec: dict) -> None:
         f"all {len(names)} parameters have a gradient, the largest "
         f"scaled error {worst:.3e} ({worst_name}, bound {LOGIT_TOL}); CPU "
         f"step {cpu_s:.1f} s")
+
+
+def proc_gib(path: str, key: str):
+    """The size on ``key``'s line of a /proc file (kB) in GiB, or None."""
+    try:
+        with open(path) as f:
+            for ln in f:
+                if ln.startswith(key):
+                    return int(ln.split()[1]) / 2**20
+    except OSError:
+        pass
+    return None
+
+
+class HostMemory:
+    """This process's resident memory (/proc/self/status's VmRSS) while
+    a block runs: at its start, its peak (read every 10 ms on a thread)
+    and its end; beside the process's lifetime peak (getrusage) and the
+    host's available memory (/proc/meminfo) at the end."""
+
+    def __enter__(self):
+        import threading
+        self.start = self.peak = proc_gib("/proc/self/status", "VmRSS:")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def _poll(self) -> None:
+        while not self._stop.wait(0.01):
+            now = proc_gib("/proc/self/status", "VmRSS:")
+            if now is not None and now > (self.peak or 0.0):
+                self.peak = now
+
+    def __exit__(self, *exc) -> None:
+        import resource
+        self._stop.set()
+        self._thread.join()
+        self.end = proc_gib("/proc/self/status", "VmRSS:")
+        self.lifetime = (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                         / 2**20)
+        self.available = proc_gib("/proc/meminfo", "MemAvailable:")
+
+    def text(self) -> str:
+        def gib(x):
+            return "not read" if x is None else f"{x:.1f} GiB"
+        return (f"host: this process resident {gib(self.start)} at the "
+                f"phase's start, at most {gib(self.peak)} in it (read every "
+                f"10 ms), {gib(self.end)} at its end, {gib(self.lifetime)} "
+                f"at its lifetime peak; the host's available "
+                f"{gib(self.available)}")
+
+
+def vlm_train_vs_cpu(dev, spec: dict) -> None:
+    """The VLM family's training part on the card against the CPU: one
+    ``forward_train`` (the patches put before the tokens, the patch
+    positions' logits cut off before the loss) and ``torch.autograd.grad``
+    over every parameter, on ``spec``'s model (full width, cut to
+    ``spec["layers"]``) and one ``SyntheticTokens`` batch, the CPU handed
+    the card's weights and batch: the losses within ``TRAIN_LOSS_RTOL``,
+    every parameter's gradient present and within ``LOGIT_TOL`` x max
+    |CPU's|.  The optimizer step is left out (``train_vs_cpu`` holds it):
+    the host then holds the model and its gradients once.  Logs the
+    process's resident memory over the phase (``HostMemory``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.train.loop import batch_to
+    with HostMemory() as mem:
+        cfg = dataclasses.replace(get_config(spec["arch"]),
+                                  n_layers=spec["layers"])
+        model = init_params(cfg, spec["seed"], device=dev)
+        batch = SyntheticTokens(cfg, spec["batch"], spec["seq_len"],
+                                spec["seed"]).batch_at(0)
+
+        def grads(device):
+            b = batch_to(batch, device)
+            check(b["prefix_embeds"].dtype == torch.float32,
+                  f"vlm_train_vs_cpu: patches reach forward_train as "
+                  f"{b['prefix_embeds'].dtype}")
+            named = dict(model.named_parameters())
+            loss = forward_train(model, cfg, b, remat=False, chunk=256)
+            g = torch.autograd.grad(loss, list(named.values()))
+            return float(loss.detach()), dict(zip(named, g))
+
+        loss, g_card = grads(dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in model.parameters())
+        t0 = time.perf_counter()
+        model.cpu()
+        cpu_loss, g_cpu = grads("cpu")
+        cpu_s = time.perf_counter() - t0
+        P, S_tok = cfg.frontend_tokens, batch["tokens"].shape[1]
+        what = (f"{cfg.name} ({cfg.n_layers} layer, d_model {cfg.d_model}, "
+                f"{n_params / 1e9:.2f}B parameters) vs CPU")
+        check(sorted(g_card) == sorted(g_cpu), f"{what}: gradients differ in "
+              f"their parameters")
+        rel = abs(loss - cpu_loss) / abs(cpu_loss)
+        check(rel <= TRAIN_LOSS_RTOL, f"{what}: loss {loss} vs {cpu_loss}")
+        worst, worst_name = 0.0, ""
+        for n in g_cpu:
+            card_g = g_card[n].cpu()
+            scale = float(g_cpu[n].abs().max())
+            check(scale > 0 and bool(torch.isfinite(card_g).all()),
+                  f"{what}: gradient of {n} zero or not finite")
+            err = float((card_g - g_cpu[n]).abs().max()) / scale
+            check(err <= LOGIT_TOL, f"{what}: gradient of {n} {err} > "
+                  f"{LOGIT_TOL} scaled")
+            if err > worst:
+                worst, worst_name = err, n
+            del card_g
+    log(f"vlm_train_vs_cpu: {what} (B {spec['batch']} x {P} patches + "
+        f"{S_tok} tokens, one forward_train and torch.autograd.grad, the "
+        f"card's weights and batch): loss {loss:.7f} vs {cpu_loss:.7f} "
+        f"({rel:.3e} relative, bound {TRAIN_LOSS_RTOL}); all {len(g_cpu)} "
+        f"parameters have a gradient, the largest scaled error "
+        f"{worst:.3e} ({worst_name}, bound {LOGIT_TOL}); CPU "
+        f"{cpu_s:.1f} s; {mem.text()}")
+    del model, g_card, g_cpu
+    torch.cuda.empty_cache()
 
 
 def train_resume(dev, spec: dict) -> None:
@@ -1949,7 +2156,8 @@ def serve_breakdown(dev, spec: dict, groups: dict, kernels: tuple,
     ``kernels`` per call, the unhooked decode step's wall, and the
     device's busy share and kernel time by kind from torch.profiler.
     ``params``: the model (default ``spec_model``); random prompt tokens
-    and, for the audio family, random frames, as serve."""
+    and, for the audio family, random frames, for the VLM family random
+    patch embeddings before the tokens, as serve."""
     import functools
     import torch
     from repro_torch.configs import AUDIO
@@ -1965,7 +2173,12 @@ def serve_breakdown(dev, spec: dict, groups: dict, kernels: tuple,
     max_len = S + spec["gen_len"]
     frames = (torch.randn((B, S, cfg.d_model), generator=gen).to(dev)
               if cfg.family == AUDIO else None)
-    prefill = functools.partial(prefill_fn, enc_frames=frames)
+    P = cfg.frontend_tokens
+    patches = (torch.randn((B, P, cfg.d_model), generator=gen).to(dev)
+               if P else None)
+    max_len += P
+    prefill = functools.partial(prefill_fn, enc_frames=frames,
+                                prefix_embeds=patches)
     logits, cache = prefill(params, cfg, toks, max_len=max_len)  # warm-up
     tok = logits[:, -1].argmax(-1, keepdim=True)
     del logits
@@ -2128,8 +2341,11 @@ def serve_path(dev, spec: dict, launches: dict, params=None,
         depth = (f" ({served.encoder_layers} encoder and {served.n_layers} "
                  f"decoder layers, d_model {cfg.d_model}, "
                  f"{spec['prompt_len']} frames a request)")
+    patches = (f" after {cfg.frontend_tokens} patch embeddings"
+               if cfg.frontend_tokens else "")
     log(f"{name}{depth}: {B} requests x {spec['prompt_len']} prompt tokens "
-        f"(shared prefix {spec['shared_prefix_len']}) + {G} generated; "
+        f"(shared prefix {spec['shared_prefix_len']}){patches} + {G} "
+        f"generated; "
         f"prefill {res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s "
         f"({G - 1} steps, {res['decode_s'] / (G - 1) * 1e3:.3f} ms each), "
         f"{res['tok_per_s']:.1f} tok/s; peak device memory {peak:.3f} GiB; "
@@ -2295,28 +2511,33 @@ def serve_vs_cpu(dev, spec: dict, model=None) -> None:
           + routing)
     agree = float(np.mean(gpu["tokens"] == cpu["logits"].argmax(-1)))
     tf32_err = float(np.max(np.abs(tf32["logits"] - cpu["logits"])))
-    log(f"{what} ({kw['requests']} requests x {kw['prompt_len']} tokens + "
-        f"{kw['gen_len']}, teacher-forced with the card's tokens, the "
-        f"card's weights): logits max_abs_err {err:.3e} <= {bound:.3e}; "
+    patches = (f" after {cfg.frontend_tokens} patch embeddings"
+               if cfg.frontend_tokens else "")
+    log(f"{what} ({kw['requests']} requests x {kw['prompt_len']} tokens"
+        f"{patches} + {kw['gen_len']}, teacher-forced with the card's "
+        f"tokens, the card's weights): logits max_abs_err {err:.3e} <= "
+        f"{bound:.3e}; "
         f"card's tokens = CPU argmax for {agree:.0%}; CPU run "
         f"{time.perf_counter() - t0:.1f} s; with allow_tf32=True "
         f"{tf32_err:.3e}, {'above' if tf32_err > bound else 'within'} the "
         f"bound{routing}")
 
 
-def int8_fill(params, cfg, prompts, max_len: int):
-    """An int8 cache of ``max_len`` slots holding the prompts' K/V: the
-    float prefill's K/V quantized by the port's ``_quant_kv``, which is
-    what a decode step writes for those K/V.  The fill is this script's,
-    not a feature of the package (the reference's prefill builds a float
+def int8_fill(params, cfg, prompts, max_len: int, prefix_embeds=None):
+    """An int8 cache of ``max_len`` slots holding the prompts' K/V (after
+    ``prefix_embeds``' where given, the VLM's patches): the float
+    prefill's K/V quantized by the port's ``_quant_kv``, which is what a
+    decode step writes for those K/V.  The fill is this script's, not a
+    feature of the package (the reference's prefill builds a float
     cache; its int8 cache is reached by init_cache and decode_step).
     Returns (the prefill's last logits, the int8 cache, the float
     cache)."""
     import torch
     from repro_torch.models import init_cache, prefill
     from repro_torch.models.attention import _quant_kv
-    B, S = prompts.shape
-    logits, fcache = prefill(params, cfg, prompts, max_len=max_len)
+    logits, fcache = prefill(params, cfg, prompts, max_len=max_len,
+                             prefix_embeds=prefix_embeds)
+    B, S = prompts.shape[0], int(fcache["len"])
     last = logits[:, -1, :cfg.vocab_size].clone()
     del logits
     cache = init_cache(params, cfg, B, max_len, kv_dtype="int8")
@@ -2456,7 +2677,7 @@ def serve_int8_stablelm(dev, spec: dict, served: dict) -> dict:
 
 
 
-def int8_vs_cpu(dev, spec: dict, model=None):
+def int8_vs_cpu(dev, spec: dict, model=None, prompt: int = 0):
     """The card's int8 decode against a CPU run handed the card's model:
     ``spec["steps"]`` teacher-forced steps (seeded tokens) from an empty
     int8 cache on the card (``drive`` the returned function), then the
@@ -2467,7 +2688,15 @@ def int8_vs_cpu(dev, spec: dict, model=None):
     run the last step on the same token, logits within ``LOGIT_TOL`` and
     the new slot's codes within 1 (the count of codes that differ
     logged).  ``model``: the spec's model on the card (default
-    ``spec_model``), moved to the CPU by the report."""
+    ``spec_model``), moved to the CPU by the report.
+
+    ``prompt`` > 0 (a config with a stubbed frontend, the VLM family):
+    the steps start instead from a prefilled cache of the config's
+    ``frontend_tokens`` patch embeddings and ``prompt`` tokens (seeded),
+    made on the card before the path by ``int8_fill`` (an int8 cache of
+    P + prompt + steps slots, and the float prefill's cache beside it):
+    the card's int8 run, its float run and the CPU's int8 run each start
+    from a copy of them."""
     import numpy as np
     import torch
     from repro_torch.models import decode_step, dims_from_params, init_cache
@@ -2479,9 +2708,31 @@ def int8_vs_cpu(dev, spec: dict, model=None):
     toks = torch.from_numpy(np.random.default_rng(spec["seed"] + 48).integers(
         0, cfg.vocab_size, (B, T)))
     state = {}
+    max_len, start = spec["max_len"], None
+    if prompt:
+        rng = np.random.default_rng(spec["seed"] + 49)
+        words = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                              (B, prompt))).to(dev)
+        patches = torch.from_numpy(rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+        max_len = cfg.frontend_tokens + prompt + T
+        _, i8, fstart = int8_fill(model, cfg, words, max_len,
+                                  prefix_embeds=patches.to(dev))
+        start = ({k: v.cpu() for k, v in i8.items()},
+                 {k: v.cpu() for k, v in fstart.items()})
+        del i8, fstart
+    first = 0 if start is None else int(start[0]["len"])
+
+    def empty_or_start(int8: bool) -> dict:
+        """The cache a run starts from, on the model's device."""
+        if start is None:
+            return init_cache(model, cfg, B, max_len,
+                              kv_dtype="int8" if int8 else None)
+        return {k: v.to(model.embed.device, copy=True)
+                for k, v in start[0 if int8 else 1].items()}
 
     def card():
-        cache = init_cache(model, cfg, B, spec["max_len"], kv_dtype="int8")
+        cache = empty_or_start(True)
         logits = []
         for t in range(T):
             if t == T - 1:   # the cache the last step starts from
@@ -2493,7 +2744,7 @@ def int8_vs_cpu(dev, spec: dict, model=None):
         state["logits"] = torch.stack(logits, 1)
 
     def report() -> None:
-        cache = init_cache(model, cfg, B, spec["max_len"])
+        cache = empty_or_start(False)
         logits = []
         for t in range(T):     # the same steps over a float cache
             lg, cache = decode_step(model, cfg, cache,
@@ -2508,7 +2759,7 @@ def int8_vs_cpu(dev, spec: dict, model=None):
               f"{INT8_RTOL:.0%}")
         t0 = time.perf_counter()
         cpu = model.cpu()   # the card's run is done
-        cache = init_cache(cpu, cfg, B, spec["max_len"], kv_dtype="int8")
+        cache = empty_or_start(True)
         logits = []
         for t in range(T):
             lg, cache = decode_step(cpu, cfg, cache, toks[:, t:t + 1])
@@ -2526,7 +2777,7 @@ def int8_vs_cpu(dev, spec: dict, model=None):
         one = one[:, :cfg.vocab_size]
         err = float((lg[:, -1] - one).abs().max())
         bound = LOGIT_TOL * max(1.0, float(one.abs().max()))
-        slot = T - 1
+        slot = first + T - 1
         diffs = [(state["cache"][n][:, :, slot].int()
                   - one_cache[n][:, :, slot].int()) for n in ("k", "v")]
         worst = max(int(d.abs().max()) for d in diffs)
@@ -2535,10 +2786,14 @@ def int8_vs_cpu(dev, spec: dict, model=None):
         check(err <= bound and worst <= 1, f"int8_vs_cpu {cfg.name}: step "
               f"{T} from the card's cache: logits max_abs_err {err} > "
               f"{bound} or a new code {worst} off")
+        since = ("an empty int8 cache" if start is None else
+                 f"an int8 cache holding {cfg.frontend_tokens} patches and "
+                 f"{prompt} tokens (the card's float prefill quantized by "
+                 f"_quant_kv; the float run from that prefill's cache)")
         log(f"int8_vs_cpu: {cfg.name} at full width cut to {cfg.n_layers} "
             f"layers, {dims.H} query heads over {dims.K} KV heads, {B} "
-            f"requests, {T} teacher-forced decode steps from an "
-            f"empty int8 cache of {spec['max_len']} slots: card against a "
+            f"requests, {T} teacher-forced decode steps from {since} of "
+            f"{max_len} slots: card against a "
             f"float cache on the card, logits {rel_f:.4%} of its largest; "
             f"card against a CPU run handed the card's model, logits "
             f"{rel:.4%} of the CPU's "
@@ -3375,6 +3630,56 @@ def main() -> int:
         padded_paths[spec["arch"]] = f_path, i_path
     uneven_groups_raise(dev, PADDED_VS_CPU[1])
 
+    # ---------- the VLM family: internvl2-76b at (64, 8), 8 of 80 layers
+    model = spec_model(dev, SERVE_VLM)
+    Lv, Gv = model.cfg.n_layers, SERVE_VLM["gen_len"]
+    dims = dims_from_params(model, model.cfg)
+    check((dims.H, dims.K) == (64, 8), f"serve_vlm: heads {dims}")
+    drive("serve_vlm", ("flash_fwd",), lambda: serve_path(
+        dev, SERVE_VLM, {"ssd_chunked": (0, 0), "flash_fwd": (Lv, Lv)},
+        params=model, name="serve_vlm"))
+    check(by_path["flash_fwd"]["serve_vlm"] == Lv * Gv,
+          f"serve_vlm: {by_path['flash_fwd']['serve_vlm']} flash launches, "
+          f"expected {Lv} x {Gv} passes")
+    torch.cuda.empty_cache()
+    bd = serve_breakdown(dev, SERVE_VLM,
+                         {"decoder layers": lambda m: m.layers},
+                         ("flash_fwd",), params=model)
+    check(bd["prefill_launches"] == {"flash_fwd": Lv}
+          and bd["decode_launches"] == {"flash_fwd": Lv},
+          f"serve_vlm breakdown: {bd['prefill_launches']} flash launches a "
+          f"prefill, {bd['decode_launches']} a decode step")
+    log_breakdown("serve_vlm", bd)
+    k4v = k4["vlm"]
+    log(f"serve_vlm: from the kernel phase, attention at (64, 8) is {Lv} x "
+        f"{k4v['prefill']['ms']:.4f} ms = "
+        f"{Lv * k4v['prefill']['ms'] / 1e3:.4f} s of the warm prefill "
+        f"({Lv * k4v['prefill']['ms'] / 1e3 / bd['prefill_s']:.1%}) and "
+        f"{Lv} x {k4v['decode']['ms']:.4f} ms = "
+        f"{Lv * k4v['decode']['ms']:.3f} ms of a decode step "
+        f"({Lv * k4v['decode']['ms'] / 1e3 / bd['decode_step_s']:.1%})")
+    del bd, model
+    torch.cuda.empty_cache()
+    # the float serve against the CPU, then INT8_VS_CPU's steps from an
+    # int8 cache prefilled with the patches, on one model handed along
+    model = spec_model(dev, SERVE_VLM_VS_CPU)
+    drive("vlm_vs_cpu float", ("flash_fwd",),
+          lambda: serve_vs_cpu(dev, SERVE_VLM_VS_CPU, model))
+    model.to(dev)        # the CPU run took it there
+    card, report = int8_vs_cpu(
+        dev, dict(INT8_VS_CPU, arch=SERVE_VLM_VS_CPU["arch"]), model,
+        VLM_INT8_PROMPT)
+    drive("vlm_vs_cpu int8", ("flash_fwd",), card)
+    report()
+    del model, card, report
+    torch.cuda.empty_cache()
+    L2, G2 = SERVE_VLM_VS_CPU["layers"], SERVE_VLM_VS_CPU["gen_len"]
+    n_f, n_i = (by_path["flash_fwd"][f"vlm_vs_cpu {p}"]
+                for p in ("float", "int8"))
+    check(n_f == 2 * L2 * G2 and n_i == L2 * INT8_VS_CPU["steps"],
+          f"vlm_vs_cpu: {n_f} and {n_i} flash launches, expected 2 x {L2} x "
+          f"{G2} and {L2} x {INT8_VS_CPU['steps']}")
+
     # ------------------------------------- training, full width and depth
     tcfg = get_config(TRAIN["arch"])
     tr = drive("train_stablelm", ("flash_fwd",),
@@ -3398,6 +3703,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     drive("train_vs_cpu", ("flash_fwd",),
           lambda: train_vs_cpu(dev, TRAIN_VS_CPU))
+    drive("vlm_train_vs_cpu", ("flash_fwd",),
+          lambda: vlm_train_vs_cpu(dev, VLM_TRAIN_VS_CPU))
+    check(by_path["flash_fwd"]["vlm_train_vs_cpu"]
+          == VLM_TRAIN_VS_CPU["layers"],
+          f"vlm_train_vs_cpu: {by_path['flash_fwd']['vlm_train_vs_cpu']} "
+          f"flash launches, expected one a layer's forward")
     drive("train_resume", ("flash_fwd",),
           lambda: train_resume(dev, TRAIN_RESUME))
 
@@ -3422,6 +3733,13 @@ def main() -> int:
         log(f"flash_fwd at {shape}: {n} float launches (prefill and "
             f"decode), {by_path['flash_fwd'][i_path]} int8 decode launches "
             f"on the paths")
+    n_vlm = sum(by_path["flash_fwd"][p] for p in (
+        "serve_vlm", "vlm_vs_cpu float", "vlm_train_vs_cpu"))
+    kernels["flash_fwd"]["vlm"]["launches"] = n_vlm
+    n_i8 = by_path["flash_fwd"]["vlm_vs_cpu int8"]
+    kernels["flash_fwd"]["int8_decode"]["internvl2-76b"]["launches"] = n_i8
+    log(f"flash_fwd at internvl2-76b's (64, 8): {n_vlm} float launches "
+        f"(prefill and decode), {n_i8} int8 decode launches on the paths")
     check_profiler_records()
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")

@@ -16,8 +16,8 @@ max(1, |o|).  It then times mixtral-8x7b's GQA call (32 query heads over
 heads (the 1-row instance).  The int8 instance follows, the same way, at
 ``chip_smoke.py``'s ``INT8_FLASH`` shapes (K/V quantized symmetric
 int8 per row, hd + 4 bytes a K or V row), against its own rule.  Last,
-the registers ptxas gave each decode instance and the CTAs of 256
-threads those leave an SM.
+the registers and spill bytes ptxas gave each decode instance and the
+CTAs of 256 threads those registers leave an SM.
 """
 from __future__ import annotations
 
@@ -73,16 +73,18 @@ def quantize(x):
 
 
 def registers() -> list:
-    """(K/V type, head columns a lane / 32, rows, registers) of each
-    decode instance, from ptxas's log of this process's build."""
+    """(K/V type, head columns a lane / 32, rows, registers, spill store
+    bytes, spill load bytes) of each decode instance, from ptxas's log
+    of this process's build."""
     log = cuda_build.BUILD_LOG.get("flash_fwd", "")
     out = []
     for m in re.finditer(r"Compiling entry function '\S*flash_decode_kernel"
-                         r"ILi(\d+)ELi(\d+)E([fa])E\S*'.*?Used (\d+) "
+                         r"ILi(\d+)ELi(\d+)E([fa])E\S*'.*?(\d+) bytes spill "
+                         r"stores, (\d+) bytes spill loads.*?Used (\d+) "
                          r"registers", log, re.S):
-        dj, rows, kv, regs = m.groups()
+        dj, rows, kv, stores, loads, regs = m.groups()
         out.append(("int8" if kv == "a" else "float32", int(dj), int(rows),
-                    int(regs)))
+                    int(regs), int(stores), int(loads)))
     return sorted(set(out))
 
 
@@ -146,9 +148,10 @@ def main() -> None:
               torch.tensor(n, dtype=torch.int32, device=dev),
               fk.int8_decode_splits(B * K, H // K, S_MAX, sms),
               4 * 2 * B * H * hd + 2 * B * n * K * (hd + 4), (ks, vs))
-    for kv, dj, rows, regs in registers():
+    for kv, dj, rows, regs, stores, loads in registers():
         print(f"decode_sweep {kv} instance hd <= {32 * dj}, {rows} rows: "
-              f"{regs} registers a thread, "
+              f"{regs} registers a thread, {stores} and {loads} bytes of "
+              f"spill stores and loads, "
               f"{65536 // (256 * -(-regs // 8) * 8)} CTAs of 256 threads an "
               f"SM by registers", flush=True)
 

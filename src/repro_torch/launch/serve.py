@@ -8,6 +8,8 @@ pool, on the GPU unless told otherwise.
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch seamless-m4t-large-v2 --prompt-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch internvl2-76b --reduced --device cpu
 
 Flow per batch, as in ``repro/launch/serve.py``: shared system prefixes
 register as *global* pages (content-hashed, deduplicated, ring-placed);
@@ -20,13 +22,16 @@ experts' einsum dispatch in plain torch products, as the reference's),
 the audio family (seamless-m4t-large-v2: the encoder's self-attention,
 the decoder's self-attention and its cross-attention over the encoder's
 output all in ``flash_fwd``; the encoder's input, frame embeddings,
-comes from the seed, as the frontend is a stub), the hybrid
-(zamba2-1.2b; Mamba2's prefill scans in the ``ssd_chunked`` kernel, the
-shared attention block in ``flash_fwd``) and the SSM family
-(xlstm-125m; scans in ``ssd_chunked``) are ported.  mixtral-8x7b at its
-32 layers is 186 GB of float32 weights and does not fit one 80 GB card:
-serve a depth-cut copy (``dataclasses.replace(cfg, n_layers=8)``) with
-``params=``.
+comes from the seed, as the frontend is a stub), the VLM family
+(internvl2-76b: the dense stack in ``flash_fwd`` over each request's
+``frontend_tokens`` patch embeddings, from the seed as the vision
+frontend is a stub, and then its tokens), the hybrid (zamba2-1.2b;
+Mamba2's prefill scans in the ``ssd_chunked`` kernel, the shared
+attention block in ``flash_fwd``) and the SSM family (xlstm-125m; scans
+in ``ssd_chunked``) are ported.  mixtral-8x7b at its 32 layers is 186
+GB of float32 weights and internvl2-76b at its 80 layers about 282 GB:
+neither fits one 80 GB card, so serve a depth-cut copy
+(``dataclasses.replace(cfg, n_layers=8)``) with ``params=``.
 
 :func:`serve` does the work and returns what it measured; :func:`main`
 prints what the reference prints.
@@ -39,7 +44,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.configs import AUDIO, get_config, reduced as reduced_config
+from repro_torch.configs import (AUDIO, get_config,
+                                 reduced as reduced_config)
 from repro_torch.core.hashring import ChordRing
 from repro_torch.device import resolve_device
 from repro_torch.edgecache import PagePoolManager
@@ -47,7 +53,6 @@ from repro_torch.kernels.flash_attention import flash_fwd
 from repro_torch.kernels.ssm_scan import ssm_scan_kernel
 from repro_torch.models import (LanguageModel, decode_step, init_params,
                                 prefill)
-from repro_torch.models.model import require_ported
 from repro_torch.obs import walltime
 
 # the kernel wrappers whose launches serve reports, by kernel name
@@ -104,7 +109,14 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
     as the reference sizes its cache (``enc_len = seq_len``): frame
     embeddings (requests, prompt_len, d_model) float32, drawn by
     ``standard_normal`` from the seed's generator after the prompts, as
-    the reference's data pipeline draws them.
+    the reference's data pipeline draws them.  A request of a config
+    with a stubbed frontend (the VLM family) carries its
+    ``frontend_tokens`` patch embeddings, P of them, (requests, P,
+    d_model) float32, drawn the same way, put before its prompt: the
+    KV cache holds P + prompt_len + gen_len positions.  The page pool
+    registers token pages only, as the reference's launcher does: the
+    patches are not tokens and hold no page, so the P cache slots that
+    hold their K/V stand outside the pool.
 
     Weights (drawn on the device) and prompts come from ``seed``; with
     ``params``, that model (on the device) is served instead, and its
@@ -131,7 +143,6 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
         cfg = get_config(arch)
         if reduced:
             cfg = reduced_config(cfg)
-        require_ported(cfg)
         params = init_params(cfg, seed, device=dev)
     elif params.embed.device.type != dev.type:
         raise ValueError(f"serve: params lie on {params.embed.device}, "
@@ -142,11 +153,15 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
         cfg.vocab_size, requests=requests, prompt_len=prompt_len,
         gen_len=gen_len, shared_prefix_len=shared_prefix_len,
         page_size=page_size, seed=rng)
-    frames = None
+    frames = patches = None
     if cfg.family == AUDIO:
         frames = torch.from_numpy(rng.standard_normal(
             (requests, prompt_len, cfg.d_model)).astype(
                 np.float32)).to(dev)
+    P = cfg.frontend_tokens
+    if P:
+        patches = torch.from_numpy(rng.standard_normal(
+            (requests, P, cfg.d_model)).astype(np.float32)).to(dev)
     B = requests
 
     forced = (None if teacher_tokens is None
@@ -158,7 +173,8 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
     t0 = walltime()
     logits, cache = prefill(params, cfg,
                             torch.as_tensor(prompts, device=dev).long(),
-                            max_len=prompt_len + gen_len, enc_frames=frames)
+                            max_len=P + prompt_len + gen_len,
+                            enc_frames=frames, prefix_embeds=patches)
     counts.append({n: w.launches for n, w in KERNELS.items()})
     step_logits = [logits[:, -1, :V].clone()]
     del logits
@@ -194,7 +210,12 @@ def serve(arch: str = "stablelm-3b", *, reduced: bool = False,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-3b")
+    ap.add_argument("--arch", default="stablelm-3b",
+                    help="a config name: stablelm-3b (default), "
+                    "deepseek-coder-33b, granite-20b, phi3-medium-14b, "
+                    "mixtral-8x7b, arctic-480b, seamless-m4t-large-v2 "
+                    "(frames from the seed), internvl2-76b (patch "
+                    "embeddings from the seed), zamba2-1.2b or xlstm-125m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=24)

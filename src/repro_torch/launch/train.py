@@ -8,8 +8,10 @@ otherwise.
         --batch 2 --seq-len 1024 --steps 4
 
 The dense (stablelm-3b, attention in the ``flash_fwd`` kernel, its
-gradient in torch ops) and MoE families train; the hybrid and SSM
-families raise (their scans have no gradient yet).  With ``--ckpt-dir``
+gradient in torch ops), MoE and VLM (internvl2-76b, the synthetic
+pipeline's patch embeddings before the tokens) families train; the
+hybrid and SSM families raise (their scans have no gradient yet), and
+so does the audio family (its training is not ported yet).  With ``--ckpt-dir``
 the state goes through the EdgeKV quorum checkpointer, and a rerun with
 the same directory resumes from its latest step.
 """

@@ -1,5 +1,6 @@
-"""The LLM side stack's models in PyTorch (the dense, MoE, audio, hybrid
-and SSM families so far; training for the dense and MoE families)."""
+"""The LLM side stack's models in PyTorch (the dense, MoE, VLM, audio,
+hybrid and SSM families; training for the dense, MoE and VLM
+families)."""
 from .model import (LanguageModel, ModelDims, dims_from_params, encode,
                     forward_train, init_params, padded_vocab,
                     param_count_tree)

@@ -13,13 +13,15 @@ of non-causal :class:`DenseBlock` over frame embeddings, :func:`encode`,
 and a decoder stack of :class:`DenseBlock` with cross-attention), the
 hybrid (zamba2-1.2b: a stack of :class:`~.ssm.Mamba2Block` and one
 shared-weight :class:`DenseBlock` applied after every
-``shared_attn_every`` of them) and the SSM family (xLSTM: a stack of
-mLSTM layers with sLSTM layers at their configured indices); the VLM
-family raises ``NotImplementedError``.  Every attention layer is built
+``shared_attn_every`` of them), the SSM family (xLSTM: a stack of
+mLSTM layers with sLSTM layers at their configured indices) and the VLM
+family (internvl2-76b: the dense stack, its input the stubbed vision
+frontend's patch embeddings, ``prefix_embeds`` (B, P, D), put before the
+looked-up tokens by :func:`_embed`).  Every attention layer is built
 at the head counts of :func:`model_dims`, padded for a tensor-parallel
 degree as the reference pads them (``init_params(..., tp=, pad_kv=)``).
 
-:func:`forward_train` is the training loss of the dense and MoE
+:func:`forward_train` is the training loss of the dense, MoE and VLM
 families, differentiable through autograd (attention's gradient is
 ``kernels.flash_attention.FlashAttention``'s).
 """
@@ -48,23 +50,6 @@ class ModelDims:
     H: int
     K: int
     hd: int
-
-
-# the ROADMAP.md item (section 1 item 4) each unported family waits for
-NOT_PORTED = {VLM: "the VLM family"}
-
-
-def require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in (DENSE, MOE, AUDIO, HYBRID, SSM):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"PyTorch yet (ROADMAP.md, section 1 item 4: "
-            f"{NOT_PORTED.get(cfg.family, 'not planned')}); only the "
-            f"{DENSE!r} (stablelm-3b, deepseek-coder-33b, granite-20b, "
-            f"phi3-medium-14b), {MOE!r} (mixtral-8x7b, "
-            f"arctic-480b), {AUDIO!r} (seamless-m4t-large-v2), "
-            f"{HYBRID!r} (zamba2-1.2b) and {SSM!r} (xlstm-125m) families "
-            f"are")
 
 
 def model_dims(cfg: ArchConfig, tp: int = 1, pad_kv: bool = False
@@ -203,14 +188,14 @@ class DenseBlock(nn.Module):
 
 class LanguageModel(nn.Module):
     """Token embedding, the layer stack, final norm and LM head; the
-    attention layers (dense, MoE and audio stacks, the hybrid's shared
-    block) at the head counts ``dims`` (default ``model_dims(cfg)``)."""
+    attention layers (dense, MoE, VLM and audio stacks, the hybrid's
+    shared block) at the head counts ``dims`` (default
+    ``model_dims(cfg)``)."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator,
                  dtype: torch.dtype = torch.float32,
                  dims: Optional[ModelDims] = None):
         super().__init__()
-        require_ported(cfg)
         dims = dims or model_dims(cfg)
         self.cfg = cfg
         D, V = cfg.d_model, padded_vocab(cfg)
@@ -218,7 +203,7 @@ class LanguageModel(nn.Module):
         self.final_norm = nn.Parameter(torch.ones(D, dtype=dtype))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(dense_init(gen, (D, V), dtype))
-        if cfg.family in (DENSE, MOE, AUDIO):
+        if cfg.family in (DENSE, MOE, VLM, AUDIO):
             if cfg.family == AUDIO:
                 self.enc_layers = nn.ModuleList(
                     DenseBlock(cfg, dims, gen, dtype)
@@ -300,9 +285,14 @@ class _Lookup(torch.autograd.Function):
         return out, None
 
 
-def _embed(params: LanguageModel, cfg: ArchConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
-    return _Lookup.apply(params.embed, tokens)
+def _embed(params: LanguageModel, cfg: ArchConfig, tokens: torch.Tensor,
+           prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tokens' embeddings (B, S, D), with ``prefix_embeds`` (B, P, D)
+    put before them where given: (B, P + S, D)."""
+    x = _Lookup.apply(params.embed, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _logits(params: LanguageModel, cfg: ArchConfig,
@@ -324,10 +314,9 @@ def encode(params: LanguageModel, cfg: ArchConfig,
 
 def dims_from_params(params: LanguageModel, cfg: ArchConfig) -> ModelDims:
     """Head counts as initialized, from the ``wq``/``wk`` widths of the
-    dense, MoE and audio families' (decoder) layers or the hybrid's
+    dense, MoE, VLM and audio families' (decoder) layers or the hybrid's
     shared block (head padding included).  The SSM family has no
     attention and no head padding, so they are the config's."""
-    require_ported(cfg)
     if cfg.family == SSM:
         return ModelDims(cfg.n_heads, cfg.n_kv_heads, cfg.hd)
     attn = (params.shared_attn.attn if cfg.family == HYBRID
@@ -352,10 +341,13 @@ def forward_train(params: LanguageModel, cfg: ArchConfig,
                   batch: Dict[str, torch.Tensor], *,
                   dispatch: str = "einsum", remat: bool = False,
                   chunk: int = 1024) -> torch.Tensor:
-    """The training loss of ``batch`` (tokens and labels, (B, S) ints):
-    embedding, the layer stack, final norm, LM head over the padded
-    vocab, the mean token cross-entropy, plus 0.01 times the MoE layers'
-    load-balancing loss summed over the layers, as the reference's.
+    """The training loss of ``batch`` (tokens and labels, (B, S) ints;
+    the VLM family's ``prefix_embeds`` (B, P, D) float, put before the
+    tokens): embedding, the layer stack, final norm, LM head over the
+    padded vocab, the mean token cross-entropy over the token positions
+    (the logits of the P prefix positions cut off, as the reference
+    cuts them), plus 0.01 times the MoE layers' load-balancing loss
+    summed over the layers, as the reference's.
 
     ``remat`` recomputes each layer's activations in the backward
     (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``
@@ -376,9 +368,9 @@ def forward_train(params: LanguageModel, cfg: ArchConfig,
             f"and cross-attention under autograd, frames in the batch) is "
             f"not ported yet (ROADMAP.md, section 1 item 5: the hybrid, "
             f"SSM and audio families' training)")
-    require_ported(cfg)
     del chunk
-    x = _embed(params, cfg, batch["tokens"])
+    prefix = batch.get("prefix_embeds")
+    x = _embed(params, cfg, batch["tokens"], prefix)
     aux: Union[float, torch.Tensor] = 0.0
     for layer in params.layers:
         if remat:
@@ -387,5 +379,8 @@ def forward_train(params: LanguageModel, cfg: ArchConfig,
         else:
             x, a = _train_layer(layer, x, dispatch)
         aux = aux + a
-    loss = cross_entropy_loss(_logits(params, cfg, x), batch["labels"])
+    logits = _logits(params, cfg, x)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]
+    loss = cross_entropy_loss(logits, batch["labels"])
     return loss + 0.01 * aux

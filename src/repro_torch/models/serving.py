@@ -1,10 +1,10 @@
 """Serving entry points: cache construction, prefill, single-token
 decode — the counterparts of ``repro/models/serving.py`` for the dense,
-MoE, audio, hybrid and SSM families.
+MoE, VLM, audio, hybrid and SSM families.
 
 Cache keys and shapes are the reference's (B = batch, L = layers):
 
-  dense, MoE, audio:
+  dense, MoE, VLM, audio:
           k, v (L, B, S, K, hd)           float32; S = max_len, or the
                                           sliding window (a ring buffer);
                                           int8 codes with
@@ -34,8 +34,8 @@ Cache keys and shapes are the reference's (B = batch, L = layers):
 
 :func:`prefill` returns a new cache.  :func:`decode_step` returns a new
 cache dict.  The SSM family's states in it are new tensors and the
-cache it was given stays as it was; the dense, MoE, audio and hybrid
-caches are written **in place** (one slot a step of K/V caches that are
+cache it was given stays as it was; the dense, MoE, VLM, audio and
+hybrid caches are written **in place** (one slot a step of K/V caches that are
 gigabytes at full width, and the hybrid's per-layer states beside
 them), so the returned dict shares them with the given one.  The valid length stays
 on the device: a decode step reads it without a host sync.  Both run
@@ -47,17 +47,23 @@ whole batch as one group at ``max(capacity_factor, 2.0)``; ``dispatch``
 ("einsum", the default, or "sort") picks the layer's dispatch.
 
 The int8 KV cache (``init_cache(..., kv_dtype="int8")``) is the
-reference's: the self-attention K/V of the dense, MoE and audio families
-as int8 codes with their scales, each decode step quantizing its token's
-K and V (``attention._quant_kv``) and the flash kernel reading codes and
-scales as they are.  The audio family's cross K/V and the hybrid's
-``ak``/``av`` stay float32, and the SSM family ignores the option.
+reference's: the self-attention K/V of the dense, MoE, VLM and audio
+families as int8 codes with their scales, each decode step quantizing
+its token's K and V (``attention._quant_kv``) and the flash kernel
+reading codes and scales as they are.  The audio family's cross K/V
+and the hybrid's ``ak``/``av`` stay float32, and the SSM family ignores
+the option.
 :func:`prefill` builds a float cache, as the reference's does: the int8
 cache is reached through :func:`init_cache` and :func:`decode_step`.
 
 The audio family's prefill takes the encoder's input, frame embeddings
 ``enc_frames`` (B, S_enc, D): the encoder runs once, in prefill, and
 each decode step reads its K/V from ``xk``/``xv``.
+
+The VLM family's prefill takes the stubbed vision frontend's patch
+embeddings ``prefix_embeds`` (B, P, D), put before the prompt's tokens:
+the cache holds the P patches' K/V and then the tokens', and ``len``
+counts both, as the reference's ``S = x.shape[1]``.
 """
 from __future__ import annotations
 
@@ -65,7 +71,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, AUDIO, DENSE, HYBRID, MOE
+from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, HYBRID,
+                                      MOE, VLM)
 from .model import (LanguageModel, _embed, _logits, _slstm_runs,
                     dims_from_params, encode)
 from .ssm import HEAD_P
@@ -86,13 +93,13 @@ def init_cache(params: LanguageModel, cfg: ArchConfig, batch: int,
     ``max_len`` tokens (the window under sliding-window attention); the
     audio family's cross K/V hold ``enc_len`` frames; the recurrent
     states do not grow with the sequence, and the SSM family ignores
-    ``max_len``.  ``kv_dtype="int8"``: the dense, MoE and audio
+    ``max_len``.  ``kv_dtype="int8"``: the dense, MoE, VLM and audio
     self-attention K/V as int8 with float32 scales ``ks``/``vs`` of ones,
     as the reference's; every other cache entry as without it."""
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"init_cache: kv_dtype must be None or 'int8', "
                          f"got {kv_dtype!r}")
-    dims = dims_from_params(params, cfg)   # raises for unported families
+    dims = dims_from_params(params, cfg)
     dev, dtype = params.embed.device, params.embed.dtype
     L, D = cfg.n_layers, cfg.d_model
 
@@ -100,7 +107,7 @@ def init_cache(params: LanguageModel, cfg: ArchConfig, batch: int,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     c = {"len": zeros(dtype=torch.int32)}
-    if cfg.family in (DENSE, MOE, AUDIO, HYBRID):
+    if cfg.family in (DENSE, MOE, VLM, AUDIO, HYBRID):
         if max_len is None:
             raise ValueError(f"init_cache: the {cfg.family!r} family needs "
                              f"max_len")
@@ -111,7 +118,7 @@ def init_cache(params: LanguageModel, cfg: ArchConfig, batch: int,
                              f"enc_len")
         c["xk"] = zeros(L, batch, enc_len, dims.K, dims.hd, dtype=dtype)
         c["xv"] = zeros(L, batch, enc_len, dims.K, dims.hd, dtype=dtype)
-    if cfg.family in (DENSE, MOE, AUDIO):
+    if cfg.family in (DENSE, MOE, VLM, AUDIO):
         kvd = torch.int8 if kv_dtype == "int8" else dtype
         c["k"] = zeros(L, batch, S, dims.K, dims.hd, dtype=kvd)
         c["v"] = zeros(L, batch, S, dims.K, dims.hd, dtype=kvd)
@@ -231,11 +238,11 @@ def decode_step(params: LanguageModel, cfg: ArchConfig, cache: Cache,
                 tokens: torch.Tensor, *, dispatch: str = "einsum"
                 ) -> Tuple[torch.Tensor, Cache]:
     """tokens (B, 1) int.  Returns (logits (B, V), new cache); the dense,
-    MoE, audio and hybrid caches are updated in place, an int8 cache's
+    MoE, VLM, audio and hybrid caches are updated in place, an int8 cache's
     scales ``ks``/``vs`` with its codes."""
     x = _embed(params, cfg, tokens)
     new = dict(cache)
-    if cfg.family in (DENSE, MOE, AUDIO):
+    if cfg.family in (DENSE, MOE, VLM, AUDIO):
         cf = max(cfg.capacity_factor, 2.0)
         keys = ("k", "v", *(("xk", "xv") if cfg.family == AUDIO else ()),
                 *(("ks", "vs") if "ks" in cache else ()))
@@ -254,25 +261,29 @@ def decode_step(params: LanguageModel, cfg: ArchConfig, cache: Cache,
 @torch.no_grad()
 def prefill(params: LanguageModel, cfg: ArchConfig, tokens: torch.Tensor, *,
             max_len: Optional[int] = None, dispatch: str = "einsum",
-            enc_frames: Optional[torch.Tensor] = None
+            enc_frames: Optional[torch.Tensor] = None,
+            prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence forward that also builds the decode cache.  Returns
-    (logits (B, S, V), cache).  The dense, MoE, audio and hybrid K/V
-    caches hold ``max_len`` tokens (default: the prompt's); the SSM
+    (logits (B, S, V), cache), S the embedded sequence: ``prefix_embeds``
+    (B, P, D), where given, then the S_tok tokens, S = P + S_tok, as the
+    reference's ``_embed`` builds it for any family (the VLM family's
+    patch embeddings).  The dense, MoE, VLM, audio and hybrid K/V caches
+    hold ``max_len`` positions (default: S) and ``len`` is S; the SSM
     family ignores ``max_len``.  The audio family needs ``enc_frames``
     (B, S_enc, D), which it encodes first; no other family takes them.
-    The scans of Mamba2 and mLSTM take chunks of ``min(128, S)`` tokens,
-    as in the reference, which must divide S."""
+    The scans of Mamba2 and mLSTM take chunks of ``min(128, S)``
+    positions, as in the reference, which must divide S."""
     if (enc_frames is None) == (cfg.family == AUDIO):
         raise ValueError(f"prefill: the {cfg.family!r} family "
                          + ("needs" if cfg.family == AUDIO else
                             "takes no") + " enc_frames")
-    B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, prefix_embeds)
+    B, S = x.shape[:2]
     cache = init_cache(params, cfg, B, max_len or S,
                        enc_len=None if enc_frames is None
                        else enc_frames.shape[1])
-    if cfg.family in (DENSE, MOE, AUDIO):
+    if cfg.family in (DENSE, MOE, VLM, AUDIO):
         x = _dense_prefill(params, x, cache, dispatch,
                            enc_out=None if enc_frames is None
                            else encode(params, cfg, enc_frames))

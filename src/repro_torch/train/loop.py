@@ -13,8 +13,9 @@ from __future__ import annotations
 
 import signal
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import QuorumCheckpointer
@@ -35,6 +36,17 @@ class LoopResult:
     # wall seconds of each step run, from its batch to its loss on the
     # host (reading the loss waits for the device)
     step_s: List[float] = field(default_factory=list)
+
+
+def batch_to(batch: Dict[str, np.ndarray], device) -> Dict[str,
+                                                            torch.Tensor]:
+    """A host batch (``SyntheticTokens.batch_at``) as tensors on
+    ``device``: integer arrays (tokens, labels) as int64, the rest (the
+    VLM family's ``prefix_embeds``, the audio family's ``enc_frames``) in
+    their own float dtype."""
+    return {k: torch.as_tensor(v, device=device, dtype=(
+                torch.int64 if v.dtype.kind in "iu" else None))
+            for k, v in batch.items()}
 
 
 def train_loop(cfg: ArchConfig, *, steps: int, batch: int, seq_len: int,
@@ -91,9 +103,7 @@ def train_loop(cfg: ArchConfig, *, steps: int, batch: int, seq_len: int,
         if (stop_flag and stop_flag[0]) or preempted:
             break
         t0 = walltime()
-        b = {k: torch.as_tensor(v, device=dev, dtype=(
-                 torch.int64 if v.dtype.kind in "iu" else None))
-             for k, v in data.batch_at(step).items()}
+        b = batch_to(data.batch_at(step), dev)
         params, opt_state, metrics = step_fn(params, opt_state, b)
         losses.append(float(metrics["loss"]))
         step_s.append(walltime() - t0)

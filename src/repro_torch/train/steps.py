@@ -22,7 +22,8 @@ def make_train_step(cfg: ArchConfig, optimizer=None, *,
     """``(train_step, optimizer)``.  ``train_step(params, opt_state,
     batch)`` takes the model, the optimizer's state (``opt.init(dict(
     params.named_parameters()))``) and a batch of (B, S) int64 "tokens"
-    and "labels" on the model's device; it updates the parameters and the
+    and "labels" on the model's device (the VLM family's also float32
+    "prefix_embeds" (B, P, D)); it updates the parameters and the
     state in place and returns ``(params, opt_state, {"loss",
     "grad_norm"})``, the metrics as 0-d tensors on the device."""
     opt = optimizer or for_arch(cfg.param_count())
@@ -44,13 +45,16 @@ def make_prefill_step(cfg: ArchConfig, *, dispatch: str = "einsum",
                       max_len: Optional[int] = None,
                       chunk: int = 1024) -> Callable:
     """``prefill_step(params, batch) -> (last-position logits (B, V),
-    cache)`` over ``batch["tokens"]``; ``chunk`` is unused, as in
-    ``forward_train``."""
+    cache)`` over ``batch["tokens"]``, with ``batch["enc_frames"]`` and
+    ``batch["prefix_embeds"]`` passed on where the batch holds them, as
+    the reference's; ``chunk`` is unused, as in ``forward_train``."""
     del chunk
 
     def prefill_step(params: LanguageModel, batch: Dict[str, torch.Tensor]):
+        kw = {k: batch[k] for k in ("enc_frames", "prefix_embeds")
+              if k in batch}
         logits, cache = prefill(params, cfg, batch["tokens"],
-                                max_len=max_len, dispatch=dispatch)
+                                max_len=max_len, dispatch=dispatch, **kw)
         # serving returns only the last-position logits (next-token head)
         return logits[:, -1], cache
 

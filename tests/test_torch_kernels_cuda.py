@@ -357,7 +357,10 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
 # 16 with pad_kv (64 over 16), phi3-medium-14b at tp 16 (48 over 16, G =
 # 3: a one-pass cluster's 4 rows part empty) and granite-20b's MQA (48
 # over 1: six passes of 8 rows), prefill and decode over the serve
-# cache, and the G = 3 decode over an empty cache (device kv_len 0)
+# cache, and the G = 3 decode over an empty cache (device kv_len 0); last
+# internvl2-76b's (64 over 8, G = 8: one pass of 8 rows a cluster), its
+# prefill over 256 patches and 1024 tokens, S 1280, and its decode over
+# the 1312-slot serve cache with 1281 valid
 @pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window,kv_len", [
     (2, 200, 200, 4, 4, 80, True, 0, None),
     (2, 64, 64, 4, 2, 64, True, 0, None),
@@ -408,6 +411,8 @@ def flash_inputs(B, Sq, Skv, H, K, hd, seed):
     (2, 1, 1056, 64, 16, 128, False, 0, 1025),
     (2, 1, 1056, 48, 16, 128, False, 0, 1025),
     (2, 1, 1056, 48, 16, 128, False, 0, 0),
+    (1, 1280, 1280, 64, 8, 128, True, 0, None),
+    (2, 1, 1312, 64, 8, 128, False, 0, 1281),
 ])
 def test_flash_kernel_vs_plain(cuda_device, B, Sq, Skv, H, K, hd, causal,
                                window, kv_len):
@@ -626,6 +631,27 @@ def test_audio_serve_on_gpu_matches_cpu(cuda_device):
         "flash_fwd": {"prefill": 2 + 2 * 4, "decode": 2 * 4 * (gen - 1)}}
 
 
+@pytest.mark.parametrize("over", [{}, dict(n_heads=16, n_kv_heads=2)])
+def test_vlm_serve_on_gpu_matches_cpu(cuda_device, over):
+    """reduced internvl2-76b (4 layers, 4 query heads over 1, and at the
+    full config's G 8, 16 over 2) on 8 patch embeddings and 48 tokens a
+    request, served on the card and on the CPU with the card's weights
+    and tokens: the same logits, one flash launch a layer per prefill and
+    per decode step."""
+    gen = 4
+    cfg = dataclasses.replace(reduced(get_config("internvl2-76b")), **over)
+    model = init_params(cfg, 1, device=cuda_device)
+    kw = dict(requests=3, prompt_len=48, gen_len=gen, shared_prefix_len=16,
+              seed=1)
+    gpu = serve(device=cuda_device, params=model, **kw)
+    cpu = serve(device="cpu", params=model.cpu(),
+                teacher_tokens=gpu["tokens"], **kw)
+    err = np.abs(gpu["logits"] - cpu["logits"]).max()
+    assert err <= 1e-4 * max(1.0, np.abs(cpu["logits"]).max()), err
+    assert gpu["launches"]["flash_fwd"] == {"prefill": 4,
+                                            "decode": 4 * (gen - 1)}
+
+
 @pytest.mark.parametrize("cf", [1.0, 1.25, 8.0])
 def test_moe_einsum_equals_sort_on_gpu(cuda_device, cf):
     """The two dispatches on the card drop the same pairs and agree
@@ -787,7 +813,9 @@ def at_offset(t, offset):
 # split (B K = 128 pairs); codes starting 4, 8 and 1 bytes past a
 # 16-byte boundary (copies of 4, 4 and 1 bytes at hd 80); the padded
 # heads of deepseek-coder-33b (64 over 16) and phi3-medium-14b (48 over
-# 16, G = 3), also over an empty cache
+# 16, G = 3), also over an empty cache; internvl2-76b's G = 8 (64 over 8,
+# the 8-row instance) over its 1312-slot serve cache, 1281 valid, and over
+# a cache with only its 256 patches
 INT8_CASES = [
     (2, 1, 1056, 32, 32, 80, False, 0, 1025, 0),
     (2, 1, 1056, 32, 8, 128, False, 0, 1025, 0),
@@ -822,6 +850,8 @@ INT8_CASES = [
     (2, 1, 1056, 64, 16, 128, False, 0, 1025, 0),
     (2, 1, 1056, 48, 16, 128, False, 0, 1025, 0),
     (2, 1, 1056, 48, 16, 128, False, 0, 0, 0),
+    (2, 1, 1312, 64, 8, 128, False, 0, 1281, 0),
+    (2, 1, 1312, 64, 8, 128, False, 0, 256, 0),
 ]
 
 

@@ -26,7 +26,7 @@ from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
 from repro.models.model import model_dims as jax_model_dims
 from repro.models.serving import init_cache as jax_init_cache
-from repro_torch.configs import SSM, VLM, get_config, reduced
+from repro_torch.configs import SSM, get_config, reduced
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import (decode_step, dims_from_params, forward_train,
                                 init_cache, init_params, prefill)
@@ -90,16 +90,11 @@ def test_dims_match_the_reference(arch, tp, pad_kv):
     """model_dims at the config itself; dims_from_params of the
     reference's full-size tree (shapes only, ``jax.eval_shape``) against
     the port's model at the same heads; the reference's tree at (tp,
-    pad_kv) loading strictly into the port's.  The VLM family is not
-    ported: its dims are, and its model raises."""
+    pad_kv) loading strictly into the port's."""
     jcfg, cfg = jax_get_config(arch), get_config(arch)
     want = jax_model_dims(jcfg, tp, pad_kv)
     got = model_dims(cfg, tp, pad_kv)
     assert (got.H, got.K, got.hd) == (want.H, want.K, want.hd)
-    if cfg.family == VLM:
-        with pytest.raises(NotImplementedError, match="section 1 item 4"):
-            init_params(slim(cfg), tp=tp, pad_kv=pad_kv)
-        return
     shapes = jax.eval_shape(lambda: jax_init_params(
         jcfg, jax.random.PRNGKey(0), tp=tp, pad_kv=pad_kv))
     want = jax_dims_from_params(shapes, jcfg)

@@ -19,8 +19,7 @@ from repro.models import prefill as jax_prefill
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels.ssm_scan import ssm_scan_kernel
 from repro_torch.launch.serve import serve
-from repro_torch.models import (LanguageModel, decode_step, init_params,
-                                prefill)
+from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.models.convert import params_from_jax, params_to_jax
 
 TOL = 1e-4   # port vs reference, float32 on the CPU: scaled by max |ref|
@@ -126,11 +125,3 @@ def test_serve_teacher_forcing_replays_its_own_tokens():
     forced = serve("xlstm-125m", teacher_tokens=free["tokens"], **kw)
     assert np.array_equal(forced["tokens"], free["tokens"])
     np.testing.assert_array_equal(forced["logits"], free["logits"])
-
-
-def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="section 1 item 4"):
-        serve("internvl2-76b", reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="the VLM family"):
-        LanguageModel(reduced(get_config("internvl2-76b")),
-                      torch.Generator().manual_seed(0))
