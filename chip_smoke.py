@@ -182,7 +182,28 @@ float32 version's error, forward and backward timed):
 Before the paths, ``analysis``: the port's static-analysis suite,
 ``python -m repro_torch.analysis src/repro_torch --json`` in a fresh
 interpreter on the card's host, every rule over every file of the port;
-a finding or a non-zero exit fails the run.
+a finding or a non-zero exit fails the run.  After it, ``mesh``, the
+mesh layer's rules (no kernel of their own: torch ops, as the
+reference's are plain ``jnp``):
+
+* ``mesh_specs``: ``launch.specs.cell_specs`` for every config, every
+  shape ``supports_shape`` allows and both production meshes, with the
+  reference's default options, and the three option overrides of
+  ``test_cell_specs_cover_all_option_paths`` on deepseek-coder-33b
+  ``decode_32k``: every argument on the meta device and the card's
+  allocated memory unchanged; cells built and skipped, seconds, and
+  ``arg_bytes_per_device`` of two cells logged;
+* ``host_mesh``: ``make_host_mesh()``, a one-rank (1, 1) ``DeviceMesh``
+  over NCCL; full-width stablelm-3b's parameters placed with
+  ``distribute_tensor`` by ``to_shardings(mesh, param_specs(...))``,
+  each local shard bitwise its parameter; ``compressed_psum`` of an
+  embedding-sized gradient over the "data" group bitwise
+  ``dequantize_int8(*quantize_int8(x))``;
+* ``ef_compress_card``: two ``ef_compress_tree`` steps (the second from
+  the first's residuals) on a full-width, full-depth stablelm-3b
+  gradient tree (each parameter times a seeded factor), codes, scales,
+  sent values and residuals bitwise the CPU's on the embedding and
+  layer 0's leaves; the tree's ms beside its byte bound.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path and read just after, and a path that never launched its
@@ -3109,6 +3130,181 @@ def obs_phase(dev, smi: str, drive, scan_grid: tuple) -> None:
         f"{len(cli.stdout.splitlines())} lines")
 
 
+MESH_BYTES = (("arctic-480b", "train_4k", True),
+              ("deepseek-coder-33b", "decode_32k", False))
+MESH_OVERRIDES = ({"pad_kv": True}, {"kv_dtype": "int8"},
+                  {"pad_kv": True, "kv_dtype": "int8"})
+MESH_MODEL = dict(arch="stablelm-3b", seed=0)     # full width and depth
+EF_SEED = 5
+EF_CPU_LEAVES = ("embed", "layers.0.")   # held against the CPU, bitwise
+
+
+def mesh_specs(dev) -> None:
+    """Every cell's plan on the meta device: nothing on the card."""
+    import torch
+    from repro_torch.configs import (ALL_ARCHS, SHAPES, get_config,
+                                     supports_shape)
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import (arg_bytes_per_device, arg_leaves,
+                                          cell_specs)
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    built, skipped, failed, arg_bytes = 0, 0, [], {}
+    cells = [(arch, name, multi) for multi in (False, True)
+             for arch in ALL_ARCHS for name in SHAPES]
+    runs = [(arch, name, multi, None) for arch, name, multi in cells]
+    runs += [("deepseek-coder-33b", "decode_32k", False, ov)
+             for ov in MESH_OVERRIDES]
+    for arch, name, multi, ov in runs:
+        cfg, shape = get_config(arch), SHAPES[name]
+        if not supports_shape(cfg, shape)[0]:
+            skipped += 1
+            continue
+        mesh = make_production_mesh(multi_pod=multi)
+        try:
+            plan = cell_specs(cfg, shape, mesh, ov)
+            if not all(t.is_meta for t, _ in arg_leaves(plan.args,
+                                                        plan.in_specs)):
+                raise AssertionError("an argument off the meta device")
+            if (ov or {}).get("kv_dtype") == "int8":
+                if plan.args[1]["k"].dtype != torch.int8:
+                    raise AssertionError("an int8 cache that is not int8")
+        except Exception as e:    # every cell is tried; the check reports
+            failed.append(f"{arch} {name} {multi} {ov}: {e!r}")
+            continue
+        built += 1
+        if (arch, name, multi) in MESH_BYTES and ov is None:
+            arg_bytes[arch, name, multi] = arg_bytes_per_device(
+                plan.args, plan.in_specs, mesh)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    after = torch.cuda.memory_allocated(dev)
+    check(not failed, f"mesh_specs: {len(failed)} cells failed: {failed}")
+    check(after == before, f"mesh_specs: the card's allocated memory went "
+          f"from {before} to {after} bytes")
+    log(f"mesh_specs: {built} plans built ({built - len(MESH_OVERRIDES)} "
+        f"cells of {len(cells)} on the two production meshes, "
+        f"{len(MESH_OVERRIDES)} option overrides of deepseek-coder-33b "
+        f"decode_32k), {skipped} cells skipped by supports_shape, "
+        f"{seconds:.3f} s; the card's allocated memory {before} bytes "
+        f"before and after")
+    for (arch, name, multi), n in arg_bytes.items():
+        log(f"mesh_specs: arg_bytes_per_device {arch} {name} "
+            f"{'multi' if multi else 'single'}: {n} bytes "
+            f"({n / 2**30:.3f} GiB)")
+
+
+def host_mesh(dev, model) -> None:
+    """``model``'s parameters placed on the one-rank NCCL host mesh by
+    the sharding rules, and ``compressed_psum`` over its "data" group."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     dequantize_int8,
+                                                     quantize_int8)
+    from repro_torch.distributed.sharding import param_specs, to_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    check(mesh.device_type == "cuda" and "nccl" in str(dist.get_backend()),
+          f"host_mesh: {mesh} on {dist.get_backend()!r}")
+    place = to_shardings(mesh, param_specs(model.cfg, model, mesh))
+    t0 = time.perf_counter()
+    differ, nbytes = [], 0
+    for name, p in model.named_parameters():
+        local = distribute_tensor(p.detach(), mesh, place[name]).to_local()
+        if not torch.equal(local, p.detach()):
+            differ.append(name)
+        nbytes += p.numel() * p.element_size()
+        del local
+    torch.cuda.synchronize(dev)
+    place_s = time.perf_counter() - t0
+    check(not differ, f"host_mesh: local shards differ: {differ}")
+    log(f"host_mesh: {mesh} on {dist.get_backend()}; "
+        f"{len(place)} parameters of {model.cfg.name} "
+        f"({nbytes / 2**30:.3f} GiB) placed by to_shardings(param_specs) "
+        f"with distribute_tensor in {place_s:.3f} s, every local shard "
+        f"bitwise its parameter (embed {place['embed']}, layers.0.attn.wq "
+        f"{place['layers.0.attn.wq']})")
+    x = model.embed.detach() * 0.5
+    got = compressed_psum(x, mesh.get_group("data"))
+    want = dequantize_int8(*quantize_int8(x))
+    check(torch.equal(got, want), "host_mesh: compressed_psum is not "
+          "dequantize_int8(*quantize_int8(x)) bitwise")
+    ms = time_ms(lambda: compressed_psum(x, mesh.get_group("data")),
+                 reps=5, windows=3)
+    log(f"host_mesh: compressed_psum over the 'data' group of "
+        f"{tuple(x.shape)} float32 ({x.numel() * 4 / 2**20:.1f} MiB) "
+        f"bitwise dequantize_int8(*quantize_int8(x)); {ms:.4f} ms a call")
+    dist.destroy_process_group()
+
+
+def ef_compress_card(dev, card: dict, smi: str, grads: dict) -> None:
+    """Two error-feedback steps on the card's gradient tree, the named
+    leaves held bitwise against the CPU, the tree timed."""
+    import torch
+    from repro_torch.distributed.compression import (ef_compress,
+                                                     ef_compress_tree,
+                                                     init_residuals)
+    held = [n for n in grads if n.startswith(EF_CPU_LEAVES)]
+    res = init_residuals(grads)
+    cpu_res = {n: res[n].cpu() for n in held}
+    worst = 0
+    for step in (1, 2):
+        sent, new_res = ef_compress_tree(grads, res)
+        for n in held:
+            q, s, r = ef_compress(grads[n], res[n])
+            cq, cs, cr = ef_compress(grads[n].cpu(), cpu_res[n])
+            for what, a, b in (("codes", q, cq), ("scale", s, cs),
+                               ("residual", r, cr),
+                               ("the tree's sent values", sent[n],
+                                cq.float() * cs),
+                               ("the tree's residual", new_res[n], cr)):
+                check(a.dtype == b.dtype and torch.equal(a.cpu(), b),
+                      f"ef_compress_card step {step} {n}: {what} differs "
+                      f"from the CPU's")
+            worst = max(worst, int(q.abs().max()))
+            cpu_res[n] = cr
+        del sent
+        res = new_res
+    n_el = sum(g.numel() for g in grads.values())
+    ms = time_ms(lambda: ef_compress_tree(grads, res), reps=3, windows=3)
+    # grads and residuals read once, sent values and residuals written
+    # once, float32; add, abs, max, divide, round, clamp (2), multiply
+    # and subtract an element
+    b_ms, b_by = bound_ms(card, 16 * n_el, 9 * n_el, torch.float32)
+    log(f"ef_compress_card: {len(grads)} leaves, {n_el} float32 gradients "
+        f"of {MESH_MODEL['arch']} at full width and depth, 2 steps; "
+        f"codes, scales, sent values and residuals bitwise the CPU's on "
+        f"{len(held)} leaves (embed and layers.0, largest code {worst}); "
+        f"ef_compress_tree {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+        f"16 bytes an element at {card['bytes'] / 1e12:.2f} TB/s), "
+        f"{b_ms / ms:.1%} of it [{smi}]")
+
+
+def mesh_phase(dev, card: dict, smi: str) -> None:
+    import torch
+    import numpy as np
+    t0 = time.perf_counter()
+    mesh_specs(dev)
+    model = spec_model(dev, MESH_MODEL)
+    host_mesh(dev, model)
+    rng = np.random.default_rng(EF_SEED)
+    with torch.no_grad():
+        grads = {n: p.detach() * float(rng.uniform(0.25, 2.0))
+                 for n, p in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ef_compress_card(dev, card, smi, grads)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del grads
+    torch.cuda.empty_cache()
+    log(f"mesh: {time.perf_counter() - t0:.1f} s in all; peak device "
+        f"memory in ef_compress_card {peak:.3f} GiB")
+
+
 def analysis_phase() -> None:
     """``repro_torch.analysis`` over ``src/repro_torch`` in a fresh
     interpreter: exit 0 and no finding, or the run fails."""
@@ -3221,6 +3417,7 @@ def main() -> int:
         return 0
 
     analysis_phase()
+    mesh_phase(dev, card, smi)
 
     # ---------------------------------------------------- open loop
     # the card's run first, so it plans with cold host memos

@@ -17,12 +17,16 @@ import torch
 import torch.nn.functional as F
 
 
-def dense_init(gen: torch.Generator, shape: Sequence[int],
+def dense_init(gen: Optional[torch.Generator], shape: Sequence[int],
                dtype: torch.dtype = torch.float32,
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated normal at +-2 standard deviations, scaled by ``scale``
     or 1/sqrt(fan_in), drawn from ``gen`` on its device (a 2.8B-parameter
-    model takes minutes to draw on the CPU, moments on the GPU)."""
+    model takes minutes to draw on the CPU, moments on the GPU).  With
+    no generator, nothing is drawn: the tensor is shape only, on the
+    meta device."""
+    if gen is None:
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)

@@ -232,9 +232,13 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     CPU if None), its attention at ``model_dims(cfg, tp, pad_kv)`` (the
     SSM family has none and ignores both).  Two devices draw different
     numbers from one seed: to compare them, hand one model's
-    ``state_dict`` to the other."""
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
-    with torch.device(gen.device):      # the constant parameters too
+    ``state_dict`` to the other.  On the meta device the model is shape
+    only, as ``jax.eval_shape`` gives the reference's: no generator is
+    made, nothing is drawn and no byte is allocated."""
+    dev = torch.device(device or "cpu")
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
+    with torch.device(dev):             # the constant parameters too
         return LanguageModel(cfg, gen, dtype, model_dims(cfg, tp, pad_kv))
 
 

@@ -953,3 +953,74 @@ def test_int8_decode_step_on_gpu_matches_cpu(cuda_device):
         for k in ("k", "v"):
             d = (gc[k][:, :, slot].cpu().int() - cache[k][:, :, slot].int())
             assert int(d.abs().max()) <= 1, (t, k)
+
+
+# ------------------------------------------------ the mesh layer's rules
+def test_quantize_int8_on_gpu_bitwise(cuda_device):
+    """Codes and scales on the card equal the CPU's (which
+    tests/test_torch_compression.py holds bitwise to the reference),
+    also where the scale's product with the reciprocal of 127 would
+    round differently from the division (amax 5.44259)."""
+    from repro_torch.distributed.compression import ef_compress, quantize_int8
+    amax = np.float32(5.44259)
+    assert amax * (np.float32(1) / np.float32(127)) != amax / np.float32(127)
+    rng = np.random.default_rng(0)
+    cases = [rng.standard_normal((64, 80)) * 10.0 ** k for k in (-6, 0, 6)]
+    x = rng.uniform(-1, 1, (33, 80)) * amax
+    x[0, 0] = -amax
+    cases += [x, np.zeros((7, 5))]
+    for x in cases:
+        x = torch.from_numpy(x.astype(np.float32))
+        for got, want in zip(quantize_int8(x.to(cuda_device)),
+                             quantize_int8(x)):
+            assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+        r = x * 1e-3
+        for got, want in zip(ef_compress(x.to(cuda_device),
+                                         r.to(cuda_device)),
+                             ef_compress(x, r)):
+            assert torch.equal(got.cpu(), want)
+
+
+def test_meta_build_allocates_nothing_on_gpu(cuda_device):
+    """``init_params(device="meta")`` and what follows the model's device
+    (the int8 cache, both optimizers' states) leave the card's allocated
+    memory where it was, at arctic-480b's full size."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.models import init_cache
+    from repro_torch.optim import adafactor, adamw
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    cfg = get_config("arctic-480b")
+    model = init_params(cfg, 0, dtype=torch.bfloat16, device="meta", tp=16,
+                        pad_kv=True)
+    params = dict(model.named_parameters())
+    tensors = [*params.values(),
+               *init_cache(model, cfg, 128, 32768, kv_dtype="int8").values(),
+               *tree_leaves(adamw().init(params)),
+               *tree_leaves(adafactor().init(params))]
+    assert tensors and all(t.is_meta for t in tensors)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_device) == before
+
+
+def test_compressed_psum_over_nccl(cuda_device):
+    """The one-rank host mesh on the card runs NCCL; the sum over its
+    "data" group is the rank's own dequantized codes, and the CPU's."""
+    import torch.distributed as dist
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     dequantize_int8,
+                                                     quantize_int8)
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    try:
+        assert (mesh.device_type == "cuda"
+                and "nccl" in str(dist.get_backend()))
+        x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (257, 1000)).astype(np.float32))
+        got = compressed_psum(x.to(cuda_device), mesh.get_group("data"))
+        assert torch.equal(got, dequantize_int8(*quantize_int8(
+            x.to(cuda_device))))
+        assert torch.equal(got.cpu(), dequantize_int8(*quantize_int8(x)))
+    finally:
+        dist.destroy_process_group()
