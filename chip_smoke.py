@@ -205,6 +205,14 @@ reference's are plain ``jnp``):
   sent values and residuals bitwise the CPU's on the embedding and
   layer 0's leaves; the tree's ms beside its byte bound.
 
+Then ``dryrun``, the dry run (``repro_torch.launch.dryrun``): full-size
+stablelm-3b's ``train_4k``, ``prefill_32k`` and ``decode_32k`` traced
+as DTensors over a fake process group of 256 ranks, and ``train_4k``
+over one of 512, on the card's host; each record's status, trace
+seconds, per-device FLOPs, collectives by kind and wire bytes logged.
+A cell that is not ``ok``, a byte of the card's memory allocated, or a
+process group left running fails the run.
+
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path and read just after, and a path that never launched its
 kernel fails.  The second-to-last line is a JSON object with each
@@ -3305,6 +3313,66 @@ def mesh_phase(dev, card: dict, smi: str) -> None:
         f"memory in ef_compress_card {peak:.3f} GiB")
 
 
+DRYRUN_CELLS = (("stablelm-3b", "train_4k", "single"),
+                ("stablelm-3b", "prefill_32k", "single"),
+                ("stablelm-3b", "decode_32k", "single"),
+                ("stablelm-3b", "train_4k", "multi"))
+
+
+def dryrun_phase(dev, smi: str) -> None:
+    """``DRYRUN_CELLS`` through ``launch.dryrun.run_cell``, each mesh on a
+    fake process group of its own size, ended after: every record
+    ``ok``, nothing allocated on the card, no group left running."""
+    import tempfile
+    from collections import Counter
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (end_fake_group, make_fake_mesh,
+                                         make_production_mesh)
+    check(not dist.is_initialized(),
+          "dryrun: a process group is running before the phase")
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    recs = []
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as out:
+        try:
+            for mname in ("single", "multi"):
+                end_fake_group()
+                mesh = make_fake_mesh(make_production_mesh(
+                    multi_pod=mname == "multi"))
+                recs += [dryrun.run_cell(arch, shape, mesh, mname,
+                                         Path(out))
+                         for arch, shape, m in DRYRUN_CELLS if m == mname]
+        finally:
+            end_fake_group()
+    torch.cuda.synchronize(dev)
+    after = torch.cuda.memory_allocated(dev)
+    for rec in recs:
+        check(rec["status"] == "ok", f"dryrun: {rec['cell']}: "
+              f"{rec.get('error')} {rec.get('trace', '')[-1500:]}")
+        kinds = Counter(c["kind"] for c in rec["collectives"])
+        nbytes = Counter()
+        for c in rec["collectives"]:
+            nbytes[c["kind"]] += c["result_bytes"]
+        log(f"dryrun {rec['cell']}: {rec['status']}, lower {rec['lower_s']} "
+            f"s, trace (compile_s) {rec['compile_s']} s, flops_per_device "
+            f"{rec['flops_per_device']:.6e}, collectives "
+            + ", ".join(f"{k} {n} ({nbytes[k]} result bytes)"
+                        for k, n in sorted(kinds.items()))
+            + f", collective_wire_bytes_per_device "
+            f"{rec['collective_wire_bytes_per_device']:.6e}, "
+            f"arg_bytes_per_device {rec['arg_bytes_per_device']} "
+            f"(torch {rec['torch']}; {smi}, on the card's host)")
+    check(after == before, f"dryrun: the card's allocated memory went "
+          f"from {before} to {after} bytes")
+    check(not dist.is_initialized(), "dryrun: a process group is left")
+    log(f"dryrun: {len(recs)} cells ok, {time.perf_counter() - t0:.1f} s; "
+        f"the card's allocated memory {before} bytes before and after; "
+        f"no process group left")
+
+
 def analysis_phase() -> None:
     """``repro_torch.analysis`` over ``src/repro_torch`` in a fresh
     interpreter: exit 0 and no finding, or the run fails."""
@@ -3418,6 +3486,7 @@ def main() -> int:
 
     analysis_phase()
     mesh_phase(dev, card, smi)
+    dryrun_phase(dev, smi)
 
     # ---------------------------------------------------- open loop
     # the card's run first, so it plans with cold host memos

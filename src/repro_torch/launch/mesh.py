@@ -7,11 +7,15 @@ named axis sizes as jax's ``AbstractMesh`` has them, which the sharding
 rules (``repro_torch.distributed.sharding``) and the cell plans
 (``repro_torch.launch.specs``) read.  :func:`make_host_mesh` is a real
 one-rank ``DeviceMesh`` with the same axis names, for runs on one
-device.
+device.  :func:`make_fake_mesh` is a ``DeviceMesh`` of a ``MeshShape``'s
+full size over a fake process group, every rank in this process and no
+byte sent: the dry run (``repro_torch.launch.dryrun``) traces each
+cell's step on it as DTensors, and :func:`end_fake_group` ends it.
 """
 from __future__ import annotations
 
 import atexit
+import math
 import os
 import tempfile
 from dataclasses import dataclass
@@ -87,3 +91,44 @@ def make_host_mesh(device=None) -> DeviceMesh:
         torch.cuda.set_device(dev.index or 0)
     return init_device_mesh(dev.type, (1, 1),
                             mesh_dim_names=("data", "model"))
+
+
+FAKE = "fake"
+
+
+def _running_fake() -> bool:
+    return dist.is_initialized() and str(dist.get_backend()) == FAKE
+
+
+def make_fake_mesh(shape: MeshShape) -> DeviceMesh:
+    """A ``DeviceMesh`` on ``"cpu"`` with ``shape``'s axis names and
+    sizes over a fake process group of ``prod(sizes)`` ranks, all in
+    this process: collectives on it send nothing and return tensors of
+    the right shape, which is all a trace on fake tensors reads.  With
+    no process group running this starts one (rank 0); a running group
+    must be fake and of that size.  One group serves one size, so a
+    caller that goes from the 256-rank mesh to the 512-rank one ends the
+    group between them (:func:`end_fake_group`)."""
+    n = math.prod(shape.axis_sizes)
+    if not dist.is_initialized():
+        # importing the module registers the "fake" backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group(FAKE, store=FakeStore(), rank=0,
+                                world_size=n)
+    elif not _running_fake() or dist.get_world_size() != n:
+        raise RuntimeError(
+            f"make_fake_mesh: a process group of {dist.get_world_size()} "
+            f"rank(s) on {dist.get_backend()!r} is running; a "
+            f"{shape.axis_sizes} fake mesh needs {n} ranks on {FAKE!r} "
+            f"(end_fake_group() ends a fake group of another size)")
+    return init_device_mesh("cpu", shape.axis_sizes,
+                            mesh_dim_names=shape.axis_names)
+
+
+def end_fake_group() -> bool:
+    """Destroy the running process group if it is a fake one; a group on
+    any other backend is left alone.  True if a group was ended."""
+    if not _running_fake():
+        return False
+    dist.destroy_process_group()
+    return True

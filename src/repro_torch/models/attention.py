@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF, Scales
-from .layers import apply_rope, dense_init
+from . import spmd
+from .layers import apply_rope, dense_init, linear
 
 Params = Dict[str, torch.Tensor]
 
@@ -53,9 +54,26 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the number of valid KV entries (a 0-d int32 tensor on the device, so
     decode passes it without a host sync).  ``kv_scales``: the (B, Skv,
     K, 1) float32 scales of int8 ``k`` and ``v``.  Returns (B, Sq, H,
-    hd)."""
+    hd).  DTensors attend on each device's shards
+    (:func:`.spmd.attention`)."""
+    if spmd.is_dtensor(q):
+        return spmd.attention(q, k, v, causal=causal,
+                              window=window, kv_len=kv_len,
+                              kv_scales=kv_scales)
     return flash_attention(q, k, v, causal=causal, window=window,
                            kv_len=kv_len, kv_scales=kv_scales)
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor, n: int,
+           hd: int) -> torch.Tensor:
+    """``x @ w`` (B, S, n hd) as (B, S, n, hd); a DTensor weight whose
+    heads do not divide the model axis projects onto every head on each
+    device (:func:`.spmd.project`)."""
+    if spmd.is_dtensor(w) and not spmd.splits_heads(w, n):
+        y = spmd.project(x, w)
+    else:
+        y = linear(x, w)
+    return y.reshape(x.shape[0], x.shape[1], n, hd)
 
 
 def attn_apply(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
@@ -74,9 +92,9 @@ def attn_apply(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
     B, S, _ = x.shape
     src = x if kv_x is None else kv_x
     Skv = src.shape[1]
-    q = (x @ p["wq"]).reshape(B, S, n_heads, hd)
-    k = (src @ p["wk"]).reshape(B, Skv, n_kv, hd)
-    v = (src @ p["wv"]).reshape(B, Skv, n_kv, hd)
+    q = _heads(x, p["wq"], n_heads, hd)
+    k = _heads(src, p["wk"], n_kv, hd)
+    v = _heads(src, p["wv"], n_kv, hd)
     if kv_x is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :]
@@ -85,7 +103,7 @@ def attn_apply(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
                        rope_theta)
     out = gqa_attention(q, k, v, causal=causal and kv_x is None,
                         window=window)
-    return out.reshape(B, S, n_heads * hd) @ p["wo"], k, v
+    return linear(out.reshape(B, S, n_heads * hd), p["wo"]), k, v
 
 
 def cross_attention(p: Params, x: torch.Tensor, k: torch.Tensor,
@@ -95,9 +113,9 @@ def cross_attention(p: Params, x: torch.Tensor, k: torch.Tensor,
     encoder's K/V (B, S_enc, K, hd) that prefill stored, every frame
     valid; the query takes no RoPE.  Returns (B, Sq, D)."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, n_heads, hd)
+    q = _heads(x, p["wq"], n_heads, hd)
     out = gqa_attention(q, k, v, causal=False)
-    return out.reshape(B, S, n_heads * hd) @ p["wo"]
+    return linear(out.reshape(B, S, n_heads * hd), p["wo"])
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,9 +135,23 @@ def _quant_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     codes, float32 scales with a trailing 1)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp_min(amax, 1e-6) / _code_max(amax.device)
+    # a DTensor (the dry run's fake tensors) takes a 127 of its own: the
+    # cached one is a real tensor of the device
+    code_max = (torch.tensor(127.0) if spmd.is_dtensor(amax)
+                else _code_max(amax.device))
+    scale = torch.clamp_min(amax, 1e-6) / code_max
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def _write(cache: torch.Tensor, slot: torch.Tensor,
+           src: torch.Tensor) -> None:
+    """``cache[:, slot] = src``, in place; a DTensor cache on each
+    device's shard (:func:`.spmd.write_slot`)."""
+    if spmd.is_dtensor(cache):
+        spmd.write_slot(cache, slot, src)
+    else:
+        cache.index_copy_(1, slot, src)
 
 
 def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
@@ -152,9 +184,9 @@ def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
                             "needs its kv_scales"))
     B = x.shape[0]
     S_max = k_cache.shape[1]
-    q = (x @ p["wq"]).reshape(B, 1, n_heads, hd)
-    k = (x @ p["wk"]).reshape(B, 1, n_kv, hd)
-    v = (x @ p["wv"]).reshape(B, 1, n_kv, hd)
+    q = _heads(x, p["wq"], n_heads, hd)
+    k = _heads(x, p["wk"], n_kv, hd)
+    v = _heads(x, p["wv"], n_kv, hd)
     pos = cur_len.reshape(1, 1).expand(B, 1)
     q = apply_rope(q, pos, rope_theta)
     k = apply_rope(k, pos, rope_theta)
@@ -167,13 +199,14 @@ def decode_attention(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     if quant:
         (k8, ks), (v8, vs) = _quant_kv(k), _quant_kv(v)
         for dst, src in zip((k_cache, v_cache, *kv_scales), (k8, v8, ks, vs)):
-            dst.index_copy_(1, slot, src)
+            _write(dst, slot, src)
         out = gqa_attention(q, k_cache, v_cache, causal=False, kv_len=kv_len,
                             kv_scales=kv_scales)
-        return (out.reshape(B, 1, n_heads * hd) @ p["wo"], k_cache, v_cache,
-                kv_scales)
-    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+        return (linear(out.reshape(B, 1, n_heads * hd), p["wo"]), k_cache,
+                v_cache, kv_scales)
+    _write(k_cache, slot, k.to(k_cache.dtype))
+    _write(v_cache, slot, v.to(v_cache.dtype))
     out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
                         causal=False, kv_len=kv_len)
-    return out.reshape(B, 1, n_heads * hd) @ p["wo"], k_cache, v_cache
+    return (linear(out.reshape(B, 1, n_heads * hd), p["wo"]), k_cache,
+            v_cache)

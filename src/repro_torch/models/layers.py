@@ -16,6 +16,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import spmd
+
 
 def dense_init(gen: Optional[torch.Generator], shape: Sequence[int],
                dtype: torch.dtype = torch.float32,
@@ -51,7 +53,10 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor,
 
 def apply_norm(kind: str, x: torch.Tensor,
                gamma: torch.Tensor) -> torch.Tensor:
-    return rmsnorm(x, gamma) if kind == "rmsnorm" else layernorm(x, gamma)
+    """The norm of ``kind``; a DTensor comes out with the batch's
+    placements (:func:`.spmd.rows`), as each sub-layer takes it."""
+    y = rmsnorm(x, gamma) if kind == "rmsnorm" else layernorm(x, gamma)
+    return spmd.rows(y) if spmd.is_dtensor(y) else y
 
 
 # --------------------------------------------------------------------- RoPE
@@ -90,14 +95,20 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
     return p
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; a DTensor weight's product on each device's shards
+    (:func:`.spmd.linear`)."""
+    return spmd.linear(x, w) if spmd.is_dtensor(w) else x @ w
+
+
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
               activation: str) -> torch.Tensor:
     if activation == "swiglu":
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"])
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
-    return h @ p["w_down"]
+        h = F.gelu(linear(x, p["w_up"]), approximate="tanh")
+    return linear(h, p["w_down"])
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -107,8 +118,15 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     least one token."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels.long()[..., None],
-                                dim=-1)[..., 0]
+    if spmd.is_dtensor(logits):
+        # no gather over a vocabulary sharded over the model axis: each
+        # device selects its own columns and the sums are reduced
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        hit = labels.long().unsqueeze(-1) == vocab
+        gold = torch.where(hit, logits, 0.0).sum(dim=-1)
+    else:
+        gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                    dim=-1)[..., 0]
     nll = logz - gold
     if mask is not None:
         mask = mask.float()

@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, HYBRID, MOE,
                                       SSM, VLM)
+from . import spmd
 from .attention import (attn_apply, attn_init, cross_attention,
                         decode_attention)
 from .layers import (apply_norm, cross_entropy_loss, dense_init, mlp_apply,
@@ -293,7 +294,8 @@ def _embed(params: LanguageModel, cfg: ArchConfig, tokens: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The tokens' embeddings (B, S, D), with ``prefix_embeds`` (B, P, D)
     put before them where given: (B, P + S, D)."""
-    x = _Lookup.apply(params.embed, tokens)
+    x = (spmd.lookup(params.embed, tokens) if spmd.is_dtensor(params.embed)
+         else _Lookup.apply(params.embed, tokens))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x

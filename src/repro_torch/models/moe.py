@@ -22,12 +22,13 @@ the layer consumes weights already permuted.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import spmd
 from .layers import dense_init, mlp_apply, mlp_init
 
 Params = Dict[str, object]
@@ -49,9 +50,13 @@ def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
     return p
 
 
-def _top_k_gating(x: torch.Tensor, router: torch.Tensor, top_k: int
+def _top_k_gating(x: torch.Tensor, router: torch.Tensor, top_k: int,
+                  mean: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (gate weights (G, T, k), expert ids (G, T, k), aux loss)."""
+    """Returns (gate weights (G, T, k), expert ids (G, T, k), aux loss).
+    ``mean`` takes the aux loss's means over (G, T) (default: of these
+    groups alone)."""
+    mean = mean or (lambda t: t.mean(dim=(0, 1)))
     logits = (x @ router).float()                            # (G, T, E)
     probs = torch.softmax(logits, dim=-1)
     # ids in descending probability, as jax.lax.top_k; the order of equal
@@ -61,8 +66,8 @@ def _top_k_gating(x: torch.Tensor, router: torch.Tensor, top_k: int
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balancing auxiliary loss
     E = router.shape[-1]
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(ids[..., 0], E).float().mean(dim=(0, 1))
+    me = mean(probs)
+    ce = mean(F.one_hot(ids[..., 0], E).float())
     aux = E * torch.sum(me * ce)
     return gates, ids, aux
 
@@ -73,14 +78,21 @@ def _capacity(tokens_per_group: int, n_experts: int, top_k: int,
 
 
 def moe_apply_einsum(p: Params, x: torch.Tensor, *, top_k: int,
-                     activation: str, capacity_factor: float = 1.25
+                     activation: str, capacity_factor: float = 1.25,
+                     experts: Optional[slice] = None,
+                     mean: Optional[Callable] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense one-hot dispatch.  x (G, T, D) grouped tokens; returns (y
-    (G, T, D), aux)."""
+    (G, T, D), aux).  ``experts``: the slice of the experts whose
+    weights ``p`` holds (one device's, under expert parallelism; all by
+    default); ``mean``: as :func:`_top_k_gating`'s."""
     G, T, D = x.shape
     E = p["router"].shape[-1]
     C = _capacity(T, E, top_k, capacity_factor)
-    gates, ids, aux = _top_k_gating(x, p["router"], top_k)
+    # the plain call keeps _top_k_gating's three arguments, as wrappers
+    # of it (tests/test_torch_moe.py's) take them
+    gates, ids, aux = (_top_k_gating(x, p["router"], top_k) if mean is None
+                       else _top_k_gating(x, p["router"], top_k, mean))
 
     # position of each (token, slot) within its expert's capacity buffer:
     # an integer cumsum over the flattened T·k order, exact on any device
@@ -96,6 +108,8 @@ def moe_apply_einsum(p: Params, x: torch.Tensor, *, top_k: int,
             * keep[..., None, None].to(x.dtype))             # (G, T, k, E, C)
     dispatch = disp.sum(2)                                   # (G, T, E, C)
     combine = (disp * gates[..., None, None].to(x.dtype)).sum(2)
+    if experts is not None:     # this device's experts alone
+        dispatch, combine = dispatch[:, :, experts], combine[:, :, experts]
 
     xe = torch.einsum("gtec,gtd->gecd", dispatch, x)         # (G, E, C, D)
     h = _expert_ffn(p["experts"], xe, activation)
@@ -178,6 +192,12 @@ def moe_apply_sort(p: Params, x: torch.Tensor, *, top_k: int,
 def moe_apply(p: Params, x: torch.Tensor, *, top_k: int, activation: str,
               capacity_factor: float = 1.25, dispatch: str = "einsum"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer through ``dispatch``; DTensors on each device's shards
+    (:func:`.spmd.moe`, the einsum dispatch)."""
+    if spmd.is_dtensor(x):
+        return spmd.moe(moe_apply_einsum, p, x, top_k=top_k,
+                        activation=activation,
+                        capacity_factor=capacity_factor, dispatch=dispatch)
     fn = moe_apply_einsum if dispatch == "einsum" else moe_apply_sort
     return fn(p, x, top_k=top_k, activation=activation,
               capacity_factor=capacity_factor)

@@ -73,6 +73,7 @@ import torch
 
 from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, HYBRID,
                                       MOE, VLM)
+from . import spmd
 from .model import (LanguageModel, _embed, _logits, _slstm_runs,
                     dims_from_params, encode)
 from .ssm import HEAD_P
@@ -88,6 +89,21 @@ def init_cache(params: LanguageModel, cfg: ArchConfig, batch: int,
                max_len: Optional[int] = None,
                enc_len: Optional[int] = None,
                kv_dtype: Optional[str] = None) -> Cache:
+    """An empty cache of ``batch`` sequences (see :func:`_empty_cache`);
+    a model of DTensors gets a cache of DTensors, each placed by the
+    sharding rules (``distributed.sharding.cache_specs``)."""
+    c = _empty_cache(params, cfg, batch, max_len, enc_len, kv_dtype)
+    if spmd.is_dtensor(params.embed):
+        from repro_torch.distributed.sharding import cache_specs
+        mesh = params.embed.device_mesh
+        c = spmd.shard_like(c, cache_specs(cfg, c, mesh), mesh)
+    return c
+
+
+def _empty_cache(params: LanguageModel, cfg: ArchConfig, batch: int,
+                 max_len: Optional[int] = None,
+                 enc_len: Optional[int] = None,
+                 kv_dtype: Optional[str] = None) -> Cache:
     """An empty cache of ``batch`` sequences on the model's device.  The
     K/V of the dense family and of the hybrid's shared block hold
     ``max_len`` tokens (the window under sliding-window attention); the
@@ -186,8 +202,11 @@ def _store(dst: torch.Tensor, t: torch.Tensor) -> None:
     S, S_cache = t.shape[1], dst.shape[1]
     if S <= S_cache:
         dst[:, :S] = t
-    else:
-        dst.copy_(torch.roll(t[:, -S_cache:], S % S_cache, dims=1))
+    else:       # torch.roll by r as two slices: DTensor (torch 2.11)
+        # has no roll strategy, and the two give the same values
+        last, r = t[:, -S_cache:], S % S_cache
+        dst.copy_(torch.cat([last[:, S_cache - r:], last[:, :S_cache - r]],
+                            dim=1))
 
 
 def _dense_prefill(params: LanguageModel, x: torch.Tensor, cache: Cache,

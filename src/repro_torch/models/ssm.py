@@ -28,6 +28,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.kernels.ssm_scan import ssd_ref as _ssd_ref_folded
+from . import spmd
 from .layers import apply_norm, dense_init, mlp_apply, mlp_init, rmsnorm
 
 Params = Dict[str, torch.Tensor]
@@ -67,7 +68,10 @@ def ssd_chunked(x: torch.Tensor, loga: torch.Tensor, dt: torch.Tensor,
     x (B, S, H, P); loga, dt (B, S, H); Bm, Cm (B, S, N) shared across
     heads; h0 (B, H, N, P).  Returns (y (B, S, H, P), h_final (B, H, N,
     P)); chunks of ``min(chunk, S)`` tokens, which must divide S.
+    DTensors scan on each device's shards (:func:`.spmd.ssd`).
     """
+    if spmd.is_dtensor(x):
+        return spmd.ssd(ssd_chunked, x, loga, dt, Bm, Cm, h0, chunk=chunk)
     Bsz, _, H, _ = x.shape
     *args, h0f = _fold(x, loga, dt, Bm, Cm, h0)
     y, h = ssm_scan(*args, chunk=chunk, h0=h0f)
@@ -178,7 +182,11 @@ def mlstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
     """Matrix-memory LSTM as gated linear attention.  ``state`` holds the
     head-folded numerator and denominator states ``num`` (B*H, 1, hd,
     hd) and ``den`` (B*H, 1, hd, 1); with it, a one-token input takes
-    one recurrence step and a longer one scans from it."""
+    one recurrence step and a longer one scans from it.  DTensors run
+    on each device's batch rows (:func:`.spmd.batch_local`)."""
+    if spmd.is_dtensor(x):
+        return spmd.batch_local(mlstm_apply, p, x, state, n_heads=n_heads,
+                                chunk=chunk)
     B, S, D = x.shape
     d_in = 2 * D
     hd = d_in // n_heads
@@ -243,7 +251,10 @@ def slstm_apply(p: Params, x: torch.Tensor, *,
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Strictly sequential scalar-memory LSTM: a loop over time.  The
     four gates' input and recurrent products are each one product with
-    the gates' weights side by side."""
+    the gates' weights side by side.  DTensors run on each device's batch
+    rows (:func:`.spmd.batch_local`)."""
+    if spmd.is_dtensor(x):
+        return spmd.batch_local(slstm_apply, p, x, state)
     B, S, D = x.shape
     if state is None:
         h = torch.zeros((B, D), dtype=torch.float32, device=x.device)

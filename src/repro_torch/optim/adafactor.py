@@ -17,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.models import spmd
 from repro_torch.models.convert import reference_leaf, reference_leaves
 from .adamw import Optimizer, Params, zero_count
 
@@ -70,6 +71,8 @@ def adafactor(lr=1e-3, decay=0.8, eps=1e-30, clip_threshold=1.0
             rms = torch.sqrt(torch.mean(u * u) + eps)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             new = (p.float() - lr_t * u).to(p.dtype)
+            if spmd.is_dtensor(new):    # the stack's shards, layer axis whole
+                new = spmd.like(new, p)
             for name, t in zip(names, new if _stacked(names) else [new]):
                 params[name].copy_(t)
         state["count"] = count

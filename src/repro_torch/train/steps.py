@@ -9,6 +9,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import spmd
 from repro_torch.models import (LanguageModel, decode_step, forward_train,
                                 prefill)
 from repro_torch.optim import for_arch
@@ -34,6 +35,8 @@ def make_train_step(cfg: ArchConfig, optimizer=None, *,
                              remat=remat, chunk=chunk)
         grads = dict(zip(named, torch.autograd.grad(loss,
                                                     list(named.values()))))
+        if spmd.is_dtensor(loss):   # each gradient onto its parameter's shards
+            grads = {n: spmd.like(g, named[n]) for n, g in grads.items()}
         grads, gnorm = clip_by_global_norm(grads, grad_clip)
         _, opt_state = opt.update(grads, opt_state, named)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
